@@ -3,8 +3,9 @@
 Low-rank compression of dense blocks on an NVIDIA H100: randomized range
 finding, pivoted QR, truncated SVD and one- and two-sided interpolative
 decompositions, with the JAX package's module layout and public names.
-Plain tensor code is PyTorch; the fused pivoted-QR panel (K1) is a CUDA
-kernel written for sm_90a (``ops/kernels/qrcp.py``, ``csrc/qrcp.cu``).
+Plain tensor code is PyTorch; the fused pivoted-QR panels (K1 for f32, K2
+for c64) are CUDA kernels written for sm_90a (``ops/kernels/qrcp.py``,
+``csrc/qrcp.cu``, ``csrc/qrcp_c64.cu``).
 
 Differences of idiom from the JAX package: explicit ``torch.Generator``
 where it takes a ``key``; a leading batch axis where it uses ``vmap``;
@@ -22,6 +23,8 @@ from .ops.orthogonalize import (cholesky_qr, cholesky_qr2, orthonormalize,
                                 shifted_cholesky_qr3)
 from .ops.pivoted_qr import pivoted_lq, pivoted_qr
 from .ops.svd import compute_svd
+from .planarc import (planar_column_id, planar_range_capture, planar_row_id,
+                      planar_rsvd, planar_two_sided_id)
 from .sampling import (range_finder, sample_range_by_rank, sketched_column_id,
                        sketched_row_id, sketched_two_sided_id)
 from .utils.errors import (CompressionError, LayoutError, LinalgError,
@@ -49,6 +52,9 @@ __all__ = [
     # sampling
     "range_finder", "sample_range_by_rank",
     "sketched_column_id", "sketched_row_id", "sketched_two_sided_id",
+    # complex
+    "planar_range_capture", "planar_rsvd", "planar_column_id",
+    "planar_row_id", "planar_two_sided_id",
     # utils
     "rel_diff_fro", "rel_diff_l2",
     "MatrixPermutationMode", "apply_matrix_permutation",

@@ -1,15 +1,21 @@
-"""K1: fused column-pivoted Gram–Schmidt QR panel — CUDA kernel and its
-plain PyTorch version.
+"""K1 and K2: fused column-pivoted Gram–Schmidt QR panels — CUDA kernels
+and their plain PyTorch version.
 
-Port of the Pallas TPU kernel ``rusty_compression_tpu/ops/pallas/qrcp.py``
-(``qrcp_panel`` / ``_qrcp_kernel``). The kernel is ``csrc/qrcp.cu``; it is
-compiled for ``sm_90a`` with ``nvcc`` into ``_build/`` at its first use on
-a CUDA tensor and bound through ``ctypes`` (a plain C interface, so the
-build takes seconds and needs neither ninja nor PyTorch's headers).
+Ports of the Pallas TPU kernels of
+``rusty_compression_tpu/ops/pallas/qrcp.py``: K1 is ``qrcp_panel`` (f32,
+``csrc/qrcp.cu``), K2 is ``qrcp_panel_complex`` (c64,
+``csrc/qrcp_c64.cu``). K2 is a source of its own and not a template
+instance of K1, so that K1's compiled code stays what it was; the two
+share ``csrc/qrcp_common.cuh``. Each source is compiled for ``sm_90a``
+with ``nvcc`` into ``_build/`` at the first use of either kernel on a CUDA
+tensor (one ``nvcc`` per source, started together) and bound through
+``ctypes`` (a plain C interface, so a build takes seconds and needs
+neither ninja nor PyTorch's headers).
 
-``qrcp_panel`` runs the plain version for a tensor on the CPU and launches
-the kernel for a CUDA tensor, or raises; it never falls back.
-``qrcp_panel.launch_count`` counts kernel launches.
+``qrcp_panel`` and ``qrcp_panel_complex`` run the plain version for a
+tensor on the CPU and launch their kernel for a CUDA tensor, or raise;
+they never fall back. Each counts its kernel launches in its
+``launch_count``.
 """
 
 from __future__ import annotations
@@ -27,10 +33,15 @@ import torch
 
 from ...utils.dtypes import real_dtype
 
-__all__ = ["qrcp_panel", "qrcp_panel_plain", "kernel_fits", "build"]
+__all__ = ["qrcp_panel", "qrcp_panel_complex", "qrcp_panel_plain",
+           "kernel_fits", "build"]
 
 _PKG = Path(__file__).resolve().parents[2]
-_SOURCE = _PKG / "csrc" / "qrcp.cu"
+_CSRC = _PKG / "csrc"
+_HEADER = _CSRC / "qrcp_common.cuh"
+#: C entry point -> its source.
+_SOURCES = {"rc_qrcp_panel_f32": _CSRC / "qrcp.cu",
+            "rc_qrcp_panel_c64": _CSRC / "qrcp_c64.cu"}
 _BUILD_DIR = _PKG / "_build"
 
 #: Dynamic shared memory the kernel may request: an H100 block gets at
@@ -38,15 +49,24 @@ _BUILD_DIR = _PKG / "_build"
 SMEM_LIMIT_BYTES = 232448 - 1024
 
 
-def smem_bytes(m: int, k: int) -> int:
-    """Shared memory the kernel needs: Q (m, k) plus two m-vectors, f32."""
-    return 4 * (m * k + 2 * m)
+def smem_bytes(m: int, k: int, itemsize: int = 4) -> int:
+    """Shared memory a kernel needs: Q (m, k) plus two m-vectors, at 4
+    bytes an element for K1 (f32) and 8 for K2 (c64)."""
+    return itemsize * (m * k + 2 * m)
 
 
-def kernel_fits(m: int, k: int) -> bool:
-    """The kernel's fit rule: the residual lives in global memory, so only
+def kernel_fits(m: int, k: int, itemsize: int = 4) -> bool:
+    """The kernels' fit rule: the residual lives in global memory, so only
     Q and two m-vectors have to fit in shared memory, whatever n is."""
-    return smem_bytes(m, k) <= SMEM_LIMIT_BYTES
+    return smem_bytes(m, k, itemsize) <= SMEM_LIMIT_BYTES
+
+
+def abs2(x: torch.Tensor) -> torch.Tensor:
+    """``|x|^2``, real; ``re^2 + im^2`` for complex input, as the complex
+    kernels compute it (no hypot, so near-ties fall the same way)."""
+    if x.is_complex():
+        return x.real ** 2 + x.imag ** 2
+    return x.abs() ** 2
 
 
 def qrcp_panel_plain(a: torch.Tensor, k: int, used: torch.Tensor | None = None):
@@ -60,7 +80,7 @@ def qrcp_panel_plain(a: torch.Tensor, k: int, used: torch.Tensor | None = None):
     *batch, m, n = a.shape
     rdt = real_dtype(a.dtype)
     resid = a.clone()
-    norms = (a.abs() ** 2).sum(-2).to(rdt)
+    norms = abs2(a).sum(-2).to(rdt)
     if used is not None:
         norms = torch.where(used.to(a.device) > 0, -1.0, norms)
     q = a.new_zeros((*batch, m, k))
@@ -77,7 +97,7 @@ def qrcp_panel_plain(a: torch.Tensor, k: int, used: torch.Tensor | None = None):
         r_row = (qi.conj().unsqueeze(-2) @ resid)[..., 0, :]
         resid = resid - qi.unsqueeze(-1) * r_row.unsqueeze(-2)
         norms = torch.where(norms < 0, norms,
-                            torch.clamp(norms - r_row.abs() ** 2, min=0.0))
+                            torch.clamp(norms - abs2(r_row), min=0.0))
         norms = norms.scatter(-1, j, -1.0)
         q[..., :, i] = qi
         r[..., i, :] = r_row
@@ -85,7 +105,7 @@ def qrcp_panel_plain(a: torch.Tensor, k: int, used: torch.Tensor | None = None):
     return q, r, piv
 
 
-_lib = None
+_libs: dict = {}
 _lib_lock = threading.Lock()
 
 
@@ -97,40 +117,104 @@ def _nvcc() -> str:
     raise RuntimeError("qrcp_panel: nvcc not found (set CUDA_HOME)")
 
 
-def build() -> tuple[Path, str]:
-    """Compile ``csrc/qrcp.cu`` for sm_90a into ``_build/`` unless a
-    library of the same source is already there. Returns the library's
-    path and the compiler's report (registers, shared memory, spills)."""
-    src = _SOURCE.read_bytes()
-    lib = _BUILD_DIR / f"libqrcp_{hashlib.sha256(src).hexdigest()[:12]}.so"
-    if lib.exists():
-        return lib, ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-           "-o", tmp, str(_SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"qrcp_panel: nvcc failed:\n{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial file
-    return lib, proc.stderr
+def build() -> dict[str, tuple[Path, str]]:
+    """Compile the kernels' sources for sm_90a into ``_build/``, one
+    ``nvcc`` per source and all started together, skipping a source whose
+    library is already there. Returns, by C entry point, the library's
+    path and the compiler's report (registers, shared memory, spills;
+    empty for a library that was found)."""
+    header = _HEADER.read_bytes()
+    out, running = {}, []
+    for entry, source in _SOURCES.items():
+        digest = hashlib.sha256(source.read_bytes() + header).hexdigest()[:12]
+        lib = _BUILD_DIR / f"lib{source.stem}_{digest}.so"
+        if lib.exists():
+            out[entry] = (lib, "")
+            continue
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler",
+               "-fPIC", "-o", tmp, str(source)]
+        running.append((entry, lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failures = []
+    for entry, lib, tmp, proc in running:
+        _, report = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failures.append(f"{lib.name}:\n{report}")
+            continue
+        os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial file
+        out[entry] = (lib, report)
+    if failures:
+        raise RuntimeError("qrcp_panel: nvcc failed:\n" + "\n".join(failures))
+    return out
 
 
-def _library():
-    global _lib
+def _entry(name: str):
+    """The C entry point ``name``, from its library (built on first use)."""
     with _lib_lock:
-        if _lib is None:
-            path, _ = build()
-            lib = ctypes.CDLL(str(path))
-            fn = lib.rc_qrcp_panel_f32
+        if name not in _libs:
+            lib = ctypes.CDLL(str(build()[name][0]))
+            fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
                 ctypes.c_void_p]
             fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+            _libs[name] = (lib, fn)
+        return _libs[name][1]
+
+
+def _panel(wrapper, entry: str, a: torch.Tensor, k: int,
+           used: torch.Tensor | None):
+    """What ``qrcp_panel`` and ``qrcp_panel_complex`` share: the checks,
+    the plain version on the CPU, the launch of ``entry`` on the card."""
+    name = wrapper.__name__
+    if a.ndim not in (2, 3):
+        raise ValueError(f"{name} expects (m, n) or (B, m, n), got "
+                         f"shape {tuple(a.shape)}")
+    *batch, m, n = a.shape
+    k = int(k)
+    if not 1 <= k <= min(m, n):
+        raise ValueError(f"{name} needs 1 <= k <= min(m, n), got k={k} "
+                         f"for a ({m}, {n}) panel")
+    if used is not None and tuple(used.shape) not in ((n,), (*batch, n)):
+        raise ValueError(f"used must have shape ({n},) or "
+                         f"{(*batch, n)}, got {tuple(used.shape)}")
+    if a.device.type == "cpu":
+        q, r, piv = qrcp_panel_plain(a, k, used)
+        return q, r, piv.to(torch.int32)
+    if a.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, got {a.device}")
+    if not a.is_contiguous() or a.is_conj():
+        raise ValueError(f"{name} needs a contiguous panel (and no lazy "
+                         f"conjugate: call resolve_conj())")
+    if not kernel_fits(m, k, a.element_size()):
+        raise ValueError(
+            f"{name}: Q of a ({m}, {n}) panel at k={k} needs "
+            f"{smem_bytes(m, k, a.element_size())} bytes of shared memory, "
+            f"more than the {SMEM_LIMIT_BYTES} the kernel may request")
+    nb = batch[0] if batch else 1
+    if used is not None:
+        if used.device != a.device:
+            raise ValueError("used must be on the panel's device")
+        used = used.to(torch.float32).expand(*batch, n).contiguous()
+    fn = _entry(entry)
+    q = torch.empty((*batch, m, k), dtype=a.dtype, device=a.device)
+    r = torch.empty((*batch, k, n), dtype=a.dtype, device=a.device)
+    piv = torch.empty((*batch, k), dtype=torch.int32, device=a.device)
+    resid = torch.empty_like(a)
+    norms = torch.empty((*batch, n), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = fn(a.data_ptr(), used.data_ptr() if used is not None else None,
+                 q.data_ptr(), r.data_ptr(), piv.data_ptr(), resid.data_ptr(),
+                 norms.data_ptr(), nb, m, n, k, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
+    wrapper.launch_count += 1
+    return q, r, piv
 
 
 def qrcp_panel(a: torch.Tensor, k: int, *, used: torch.Tensor | None = None):
@@ -141,55 +225,27 @@ def qrcp_panel(a: torch.Tensor, k: int, *, used: torch.Tensor | None = None):
     (..., k, n) in *original* column order, piv (..., k) int32 pivot
     columns in selection order. ``used`` (n,) or (B, n) marks columns that
     are never chosen. A CPU tensor runs the plain version; a CUDA tensor
-    launches the kernel (one CTA per panel) or raises.
+    launches the kernel (K1, one CTA per panel) or raises.
     """
     if a.dtype != torch.float32:
         raise ValueError(f"qrcp_panel is f32-only, got {a.dtype}")
-    if a.ndim not in (2, 3):
-        raise ValueError(f"qrcp_panel expects (m, n) or (B, m, n), got "
-                         f"shape {tuple(a.shape)}")
-    *batch, m, n = a.shape
-    k = int(k)
-    if not 1 <= k <= min(m, n):
-        raise ValueError(f"qrcp_panel needs 1 <= k <= min(m, n), got k={k} "
-                         f"for a ({m}, {n}) panel")
-    if used is not None and tuple(used.shape) not in ((n,), (*batch, n)):
-        raise ValueError(f"used must have shape ({n},) or "
-                         f"{(*batch, n)}, got {tuple(used.shape)}")
-    if a.device.type == "cpu":
-        q, r, piv = qrcp_panel_plain(a, k, used)
-        return q, r, piv.to(torch.int32)
-    if a.device.type != "cuda":
-        raise ValueError(f"qrcp_panel runs on cpu or cuda, got {a.device}")
-    if not a.is_contiguous():
-        raise ValueError("qrcp_panel needs a contiguous panel")
-    if not kernel_fits(m, k):
-        raise ValueError(
-            f"qrcp_panel: Q of a ({m}, {n}) panel at k={k} needs "
-            f"{smem_bytes(m, k)} bytes of shared memory, more than the "
-            f"{SMEM_LIMIT_BYTES} the kernel may request")
-    nb = batch[0] if batch else 1
-    if used is not None:
-        if used.device != a.device:
-            raise ValueError("used must be on the panel's device")
-        used = used.to(torch.float32).expand(*batch, n).contiguous()
-    lib = _library()
-    q = torch.empty((*batch, m, k), dtype=torch.float32, device=a.device)
-    r = torch.empty((*batch, k, n), dtype=torch.float32, device=a.device)
-    piv = torch.empty((*batch, k), dtype=torch.int32, device=a.device)
-    resid = torch.empty_like(a)
-    norms = torch.empty((*batch, n), dtype=torch.float32, device=a.device)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.rc_qrcp_panel_f32(
-            a.data_ptr(), used.data_ptr() if used is not None else None,
-            q.data_ptr(), r.data_ptr(), piv.data_ptr(), resid.data_ptr(),
-            norms.data_ptr(), nb, m, n, k, stream)
-    if err != 0:
-        raise RuntimeError(f"qrcp_panel: kernel launch failed, CUDA error "
-                           f"{err}")
-    qrcp_panel.launch_count += 1
-    return q, r, piv
+    return _panel(qrcp_panel, "rc_qrcp_panel_f32", a, k, used)
+
+
+def qrcp_panel_complex(a: torch.Tensor, k: int, *,
+                       used: torch.Tensor | None = None):
+    """The ``qrcp_panel`` contract for a complex64 panel or batch of
+    panels: the JAX package's ``qrcp_panel_complex``, with q and r_orig
+    complex64. A CUDA tensor launches K2 or raises.
+
+    The JAX function's ``packed`` argument is gone: it chose between two
+    output layouts of the planar TPU kernel, and the card reads the
+    interleaved complex64 tensor as it is.
+    """
+    if a.dtype != torch.complex64:
+        raise ValueError(f"qrcp_panel_complex is c64-only, got {a.dtype}")
+    return _panel(qrcp_panel_complex, "rc_qrcp_panel_c64", a, k, used)
 
 
 qrcp_panel.launch_count = 0
+qrcp_panel_complex.launch_count = 0

@@ -2,10 +2,10 @@
 
 A stack of same-shape blocks (B, m, n) goes through one pipeline whose
 every step acts on the whole stack: batched GEMMs, batched small
-factorizations, and one K1 launch (grid = B) per pivoted QR. This is the
-JAX package's ``vmap`` written out as a leading batch axis. Each block
-gets an independent Gaussian sketch, drawn from one ``torch.Generator``.
-Fixed-rank paths only.
+factorizations, and one K1 (c64: K2) launch (grid = B) per pivoted QR
+panel. This is the JAX package's ``vmap`` written out as a leading batch
+axis. Each block gets an independent Gaussian sketch, drawn from one
+``torch.Generator``. Fixed-rank paths only.
 """
 
 from __future__ import annotations
@@ -13,7 +13,8 @@ from __future__ import annotations
 import torch
 
 from ..linop import as_linear_operator
-from ..models.interp_decomp import TwoSidedID
+from ..models.interp_decomp import ColumnID, RowID, TwoSidedID
+from ..models.qr import LQ, QR
 from ..models.svd import SVD
 from ..sampling import (_gaussian_for, _range_finder_from_omega,
                         sketched_two_sided_id)
@@ -22,8 +23,14 @@ from ..utils.precision import with_precision
 
 __all__ = [
     "rsvd_block",
+    "column_id_block",
+    "row_id_block",
+    "two_sided_id_block",
     "sketched_two_sided_id_block",
     "batched_rsvd",
+    "batched_column_id",
+    "batched_row_id",
+    "batched_two_sided_id",
     "batched_sketched_two_sided_id",
     "batched_rel_diff_fro",
 ]
@@ -57,6 +64,35 @@ def _rsvd_block_from_omega(a: torch.Tensor, omega: torch.Tensor, rank: int,
 
 
 @with_precision
+def column_id_block(a: torch.Tensor, generator: torch.Generator, rank: int,
+                    **qr_kwargs) -> ColumnID:
+    """Fixed-rank column interpolative decomposition of one block (or a
+    stack): pivoted QR truncated at ``rank`` steps, then the
+    rank-deficient ``column_id`` conversion. ``generator`` draws the
+    blocked RRQR's pivot sketch."""
+    qr = QR.compute_from(a, max_rank=rank, generator=generator, **qr_kwargs)
+    return qr.column_id()
+
+
+@with_precision
+def row_id_block(a: torch.Tensor, generator: torch.Generator, rank: int,
+                 **qr_kwargs) -> RowID:
+    """Fixed-rank row interpolative decomposition of one block (or a
+    stack), through the truncated pivoted LQ."""
+    lq = LQ.compute_from(a, max_rank=rank, generator=generator, **qr_kwargs)
+    return lq.row_id()
+
+
+@with_precision
+def two_sided_id_block(a: torch.Tensor, generator: torch.Generator,
+                       rank: int, **qr_kwargs) -> TwoSidedID:
+    """Fixed-rank two-sided interpolative decomposition of one block (or a
+    stack): QR -> ColumnID -> TwoSidedID. Reads the block twice (the pivot
+    sketch and the R rows); ``sketched_two_sided_id_block`` reads it once."""
+    return column_id_block(a, generator, rank, **qr_kwargs).two_sided_id()
+
+
+@with_precision
 def sketched_two_sided_id_block(a: torch.Tensor, generator: torch.Generator,
                                 rank: int, oversample: int = 8,
                                 **qr_kwargs) -> TwoSidedID:
@@ -81,6 +117,29 @@ def batched_rsvd(blocks: torch.Tensor, generator: torch.Generator, rank: int,
     _check_stack(blocks)
     return rsvd_block(blocks, generator, rank, oversample=oversample,
                       power_iters=power_iters, **kwargs)
+
+
+def batched_column_id(blocks: torch.Tensor, generator: torch.Generator,
+                      rank: int, **qr_kwargs) -> ColumnID:
+    """Column ID of a ``(B, m, n)`` block stack (fields carry a leading
+    batch axis)."""
+    _check_stack(blocks)
+    return column_id_block(blocks, generator, rank, **qr_kwargs)
+
+
+def batched_row_id(blocks: torch.Tensor, generator: torch.Generator,
+                   rank: int, **qr_kwargs) -> RowID:
+    """Row ID of a ``(B, m, n)`` block stack."""
+    _check_stack(blocks)
+    return row_id_block(blocks, generator, rank, **qr_kwargs)
+
+
+def batched_two_sided_id(blocks: torch.Tensor, generator: torch.Generator,
+                         rank: int, **qr_kwargs) -> TwoSidedID:
+    """Two-sided ID of a ``(B, m, n)`` block stack by the two-read route
+    (``two_sided_id_block``)."""
+    _check_stack(blocks)
+    return two_sided_id_block(blocks, generator, rank, **qr_kwargs)
 
 
 def batched_sketched_two_sided_id(blocks: torch.Tensor,

@@ -35,14 +35,23 @@ def port():
     return types.SimpleNamespace(torch=torch, rt=rusty_compression_tpu_torch)
 
 
-def low_rank(seed: int, shape, sigma_min: float, dtype=np.float32):
-    """``U diag(geomspace(1, sigma_min)) V^T`` with random orthonormal U, V."""
+def low_rank(seed: int, shape, sigma_min: float, dtype=np.float32,
+             rank: int | None = None):
+    """``U diag(geomspace(1, sigma_min)) V^H`` with random orthonormal U, V
+    (complex for a complex ``dtype``), of rank ``min(shape)`` unless
+    ``rank`` says less."""
     rng = np.random.default_rng(seed)
     m, n = shape
-    k = min(m, n)
-    u, _ = np.linalg.qr(rng.standard_normal((m, k)))
-    v, _ = np.linalg.qr(rng.standard_normal((n, k)))
-    return ((u * np.geomspace(1.0, sigma_min, k)) @ v.T).astype(dtype)
+    k = min(m, n) if rank is None else rank
+    cplx = np.issubdtype(dtype, np.complexfloating)
+
+    def gaussian(rows):
+        g = rng.standard_normal((rows, k))
+        return g + 1j * rng.standard_normal((rows, k)) if cplx else g
+
+    u, _ = np.linalg.qr(gaussian(m))
+    v, _ = np.linalg.qr(gaussian(n))
+    return ((u * np.geomspace(1.0, sigma_min, k)) @ v.conj().T).astype(dtype)
 
 
 def t(x):

@@ -3,7 +3,8 @@ against the JAX package on the same numpy inputs.
 
 Tolerances: pivots exactly equal; factors to 1e-5 (f32) or 1e-10 (f64)
 of each factor's largest entry (same algorithm, another summation order).
-Shapes stay at n <= 512, where the JAX package resolves ``"gs"``.
+Shapes stay at n <= 512, where the JAX package resolves ``"gs"``; the
+blocked route has ``test_torch_blocked_qr.py``.
 """
 
 import jax
@@ -104,6 +105,15 @@ def test_qr_tolerance_and_range_estimate_match_jax(port):
     ("float32", "cuda", 4096, 100, 100, "gs"),      # Q does not fit
     ("float32", "cpu", 24, 2048, 16, "blocked"),
     ("float32", "cuda", 300, 300, 200, "blocked"),
+    ("float32", "cuda", 16384, 16384, 16, "blocked"),  # Q does not fit, wide
+    # c64 takes K2 on the card (the JAX package kept complex off its kernel)
+    ("complex64", "cuda", 53, 8192, 43, "kernel"),
+    ("complex64", "cuda", 43, 8192, 43, "kernel"),
+    ("complex64", "cuda", 2048, 100, 100, "gs"),       # Q at 8 bytes: no fit
+    ("complex64", "cpu", 53, 300, 43, "gs"),
+    ("complex64", "cpu", 53, 8192, 43, "blocked"),
+    ("complex128", "cuda", 53, 300, 43, "gs"),
+    ("complex128", "cuda", 53, 8192, 43, "blocked"),
 ])
 def test_resolve_mode_keeps_the_jax_thresholds(port, dtype, device, m, n_, k,
                                               expect):
@@ -113,9 +123,3 @@ def test_resolve_mode_keeps_the_jax_thresholds(port, dtype, device, m, n_, k,
     got = _resolve_mode("auto", m, n_, k, getattr(torch, dtype),
                         torch.device(device))
     assert got == expect
-
-
-def test_blocked_mode_is_not_ported(port):
-    a = port.torch.zeros((8, 600), dtype=port.torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.rt.pivoted_qr(a, max_rank=8)
