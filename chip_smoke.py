@@ -10,8 +10,14 @@ raises, and the script exits non-zero without its result line):
    c64) from this checkout, one ``nvcc`` each, started together; prints
    both ``ptxas`` reports.
 2. K1 and K2 against their plain version on the card at the main paths'
-   panel shapes: pivots exactly equal, q and r within 1e-4; median times
-   of 10 launches each (CUDA events), beside the roofline bound of the
+   panel shapes and at ragged and masked ones (a width that is no
+   multiple of the cluster's warps, fewer columns than 32 a CTA, a mask
+   over one CTA's whole slice): pivots exactly equal, q and r within
+   1e-4, two launches on one panel bitwise equal; the layout the wrapper
+   chose (cluster size, residual in shared memory or not, bytes of
+   shared memory); median times of 10 launches each (CUDA events around
+   the wrapper's call: ``ms``, ``plain_ms``) and the kernel alone, queued
+   behind a busy card (``device_ms``), beside the roofline bound of the
    shape. Then, at a small size, the one-read ID, the rSVD, the blocked
    RRQR (f32 and c64) and the complex two-sided ID on the card against
    the same call on the CPU with the same Gaussian matrices.
@@ -182,17 +188,26 @@ def distinct_norm_panel(torch, gen, shape, dtype=None):
 def phase_kernel(torch, k1, gen) -> dict:
     """Each kernel against the plain version; the first case of each is
     the shape whose times go into the ``kernels`` line."""
+    from rusty_compression_tpu_torch.ops.kernels.sweep import device_ms
+
+    # (shape, k, mask): mask False, True (every seventh column used) or
+    # "slice" (the first CTA's whole slice used).
     cases = {
         "qrcp_panel": [
             ((24, 16384), 16, False),     # sketch of the 16384^2 block
             ((16, 16384), 16, False), ((24, 2048), 16, False),
             ((37, 301), 29, True), ((8, 24, 2048), 16, False),
             ((136, 256), 128, True),      # the 4096^2 RRQR's shortlist
-            ((24, 32), 16, False)],       # config 4b's shortlist
+            ((24, 32), 16, False),        # config 4b's shortlist
+            ((24, 16389), 16, True),      # ragged last CTA
+            ((24, 16384), 16, "slice"), ((8, 24, 2048), 16, "slice"),
+            ((600, 40), 8, False)],       # fewer columns than 32 a CTA
         "qrcp_panel_complex": [
             ((53, 8192), 43, False),      # core of the 8192^2 complex ID
             ((43, 8192), 43, False), ((136, 256), 128, True),
-            ((37, 301), 29, True), ((8, 24, 2048), 16, False)],
+            ((37, 301), 29, True), ((8, 24, 2048), 16, False),
+            ((53, 8191), 43, True),       # ragged, residual in L2
+            ((43, 8192), 43, "slice"), ((600, 40), 8, False)],
     }
     out = {}
     for name, shapes in cases.items():
@@ -201,10 +216,15 @@ def phase_kernel(torch, k1, gen) -> dict:
         worst, main = 0.0, None
         for shape, k, masked in shapes:
             a = distinct_norm_panel(torch, gen, shape, dtype)
+            layout = k1.panel_layout(*shape[-2:], k, a.element_size())
             used = None
             if masked:
                 used = torch.zeros(shape[-1], dtype=torch.bool, device="cuda")
-                used[::7] = True
+                if masked == "slice":
+                    check(layout.cluster > 1, f"{shape} is not clustered")
+                    used[:layout.width] = True
+                else:
+                    used[::7] = True
             q, r, piv = fn(a, k, used=used)
             q0, r0, piv0 = k1.qrcp_panel_plain(a, k, used)
             torch.cuda.synchronize()
@@ -213,13 +233,23 @@ def phase_kernel(torch, k1, gen) -> dict:
             err = max(float((q - q0).abs().max()),
                       float((r - r0).abs().max()))
             check(err <= 1e-4, f"{name} |q|, |r| error {err} at {shape} k={k}")
+            again = fn(a, k, used=used)
+            torch.cuda.synchronize()
+            check(all(torch.equal(x, y) for x, y in zip((q, r, piv), again)),
+                  f"{name} at {shape} k={k}: two launches differ")
             times = {"ms": event_ms(lambda: fn(a, k, used=used)),
+                     "device_ms": device_ms(
+                         torch, lambda: fn(a, k, used=used)),
                      "plain_ms": event_ms(
                          lambda: k1.qrcp_panel_plain(a, k, used)),
                      **panel_bound(shape, k, a.element_size(), masked)}
             worst = max(worst, err)
             say("2-kernel", kernel=name, shape=list(shape), k=k,
-                used_mask=masked, pivots_equal=True, max_abs_err=err, **times)
+                used_mask=masked, cluster=layout.cluster,
+                resid_in_smem=layout.resid_in_smem,
+                smem_bytes=layout.smem_bytes, threads=layout.threads,
+                pivots_equal=True, repeat_bitwise=True, max_abs_err=err,
+                **times)
             main = main or times
         out[name] = {"max_abs_err": worst, **main}
     torch.cuda.synchronize()
@@ -602,7 +632,8 @@ def main(argv) -> int:
         "name": name, "route": "cuda", "source": meta["source"],
         "replaces": meta["replaces"], "launches": launches[name],
         "max_abs_err": kernels[name]["max_abs_err"],
-        "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"],
+        "ms": kernels[name]["ms"], "device_ms": kernels[name]["device_ms"],
+        "plain_ms": kernels[name]["plain_ms"],
         "bound_ms": kernels[name]["bound_ms"],
         "bound_by": kernels[name]["bound_by"], "library_ms": None}
         for name, meta in KERNELS.items()]}))

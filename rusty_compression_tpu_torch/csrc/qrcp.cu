@@ -16,165 +16,85 @@
 //      column is set to -1 (without the sentinel, exhausted columns of a
 //      rank-deficient panel would tie at 0 and be picked twice).
 //
-// What bounds it on the H100: each step reads and rewrites the whole
-// (m, n) residual, so k steps move about 3 k m n 4 bytes; at the sketch
-// of a 16384^2 block (24 x 16384, k = 16) that is 1.5 MB of residual,
-// too large for one SM's 227 KB of shared memory but resident in the
-// 50 MB L2. One CTA works on one panel, so a single panel runs on one
-// of the 132 SMs and the step loop is latency-bound: the rate is one
-// SM's L2 bandwidth plus eight block-wide barriers per step.
+// What bounds it on the H100: by the roofline, bytes at the wide sketch
+// panels ((24, 16384): the panel read once, q, r and piv written once) and
+// operations at the square shortlists ((136, 256) at k = 128). In fact
+// neither: the k steps depend on each other (step i + 1 picks its pivot
+// from the norms step i left), each step is a few thousand operations per
+// SM, and so the kernel is bound by the latency of a step: its barriers
+// and the round trips to wherever the residual lies. What a design can do
+// is keep the residual next to the threads, put many SMs on one panel and
+// spend few barriers a step.
 //
-// What this simple design does about it: the residual and the norm
-// table live in a global workspace (L2), with one thread per column so
-// that the resid[r * n + c] reads and writes of a warp are coalesced;
-// the R row, the rank-1 downdate and the norm downdate share one pass
-// over each column. Q (m x k), the pivot column and the projections sit
-// in shared memory; that is the fit rule the wrapper checks:
-// (m k + 2 m) 4 bytes of dynamic shared memory. A batch of panels is a
-// grid of CTAs, one per panel. Every dot product accumulates in f32.
-// The Mosaic one-hot masks of the TPU kernel are gone: columns are
-// indexed directly. Spreading one panel over a cluster or several CTAs,
-// and wgmma, are later work.
+// What this design does about it (the step loop is in qrcp_common.cuh,
+// written once for f32 and complex64):
+// - One panel is one thread-block cluster of C = 1, 2, 4, 8 or 16 CTAs;
+//   CTA c owns the columns [c w, (c + 1) w), w = ceil(n / C). A batch of
+//   panels is a grid of clusters.
+// - The CTA's residual slice (m, w), its last R row and its norm slice
+//   stay in its shared memory for the whole step loop whenever they fit
+//   beside Q; the 1.5 MB sketch of a 16384-wide block is sixteen slices
+//   of 96 KB. A slice that fits no cluster of 16 stays in the CTA's part
+//   of a global workspace (L2), with the same access pattern. The
+//   wrapper's layout rule (panel_layout in ops/kernels/qrcp.py) chooses
+//   C, the layout and the block size from (m, n, k) alone.
+// - One cluster barrier a step. Each CTA joins the (value, index) best of
+//   its norm slice and writes it, with that column of its slice, into
+//   every CTA's candidate buffer through distributed shared memory.
+//   After the barrier every warp of every CTA joins the C candidates
+//   itself with `better`, so all agree on j with ties to the lowest
+//   index, and all hold the pivot column already: there is no second
+//   exchange and the owner need not wait before it downdates. The
+//   buffers alternate by step parity. Steps 3 and 4 are replicated in
+//   every CTA on a replicated Q (same code, same order, bitwise the same
+//   q_i), so nothing is broadcast. There are no atomics: a run repeats
+//   bitwise.
+// - The column pass (5-7) uses every thread and touches each residual
+//   element once a step: the downdate of step i - 1 is folded into the
+//   pass of step i (read, downdate by (q_{i-1}, s_{i-1}), write, dot with
+//   q_i; the two q values come in one load), and the last downdate is
+//   never made. A warp lies over 32 neighbouring columns of a row of the
+//   slice (conflict-free in shared memory, coalesced in L2); where the
+//   slice is narrower than the block several threads share a column over
+//   row ranges and join their partial dot products in shared memory in a
+//   fixed order. The norm downdate keeps each thread's best for the next
+//   step's argmax, which therefore costs no pass of its own.
+// - Q is column-major in shared memory, so a warp reads neighbouring
+//   words in both loops of step 3 whatever k is, four columns at a time
+//   for independent chains; q_out is written (m, k) row-major at the end.
+// - Four block barriers a step beside the cluster barrier, and small
+//   panels run as one CTA with as few as 128 threads.
+// Every dot product accumulates in f32. What is left of a step is a chain
+// of dependent latencies (two warp argmaxes, the barrier, two reduction
+// rounds, a norm) of a few microseconds whatever the panel's size.
+// wgmma has no use here (each step is a matrix-vector product); a
+// pivots-only variant is later work.
 
 #include "qrcp_common.cuh"
 
-namespace {
-
-using namespace rc_qrcp;
-
-__global__ void __launch_bounds__(kThreads)
-qrcp_panel_kernel(const float* __restrict__ a, const float* __restrict__ used,
-                  float* __restrict__ q_out, float* __restrict__ r_out,
-                  int* __restrict__ piv_out, float* __restrict__ resid,
-                  float* __restrict__ norms, int m, int n, int k) {
-  extern __shared__ float smem[];
-  float* qs = smem;         // (m, k) basis, row-major like q_out
-  float* v = qs + m * k;    // (m) pivot column, then q_i
-  float* qv = v + m;        // (k <= m) projections Q^T v
-  __shared__ ArgMax warp_best[kWarps];
-  __shared__ float s_inv;
-  __shared__ int s_piv;
-
-  const size_t panel = blockIdx.x;
-  const size_t mn = (size_t)m * n;
-  a += panel * mn;
-  resid += panel * mn;
-  norms += panel * n;
-  q_out += panel * m * k;
-  r_out += panel * k * n;
-  piv_out += panel * k;
-  if (used != nullptr) used += panel * n;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  for (int x = tid; x < m * k; x += kThreads) qs[x] = 0.f;
-  // Copy the panel into the residual workspace and take the column norms.
-  for (int c = tid; c < n; c += kThreads) {
-    float s = 0.f;
-    for (int r = 0; r < m; ++r) {
-      const float x = a[(size_t)r * n + c];
-      resid[(size_t)r * n + c] = x;
-      s += x * x;
-    }
-    norms[c] = (used != nullptr && used[c] > 0.f) ? -1.f : s;
-  }
-  __syncthreads();
-
-  for (int i = 0; i < k; ++i) {
-    // 1. Block-wide argmax. Each thread scans its columns in ascending
-    // order with a strict comparison, so it keeps its lowest index.
-    ArgMax best{-INFINITY, n};
-    for (int c = tid; c < n; c += kThreads) {
-      const float x = norms[c];
-      if (x > best.v) best = ArgMax{x, c};
-    }
-    best = warp_argmax(best);
-    if (lane == 0) warp_best[warp] = best;
-    __syncthreads();
-    if (warp == 0) {
-      best = warp_argmax(warp_best[lane]);
-      if (lane == 0) s_piv = best.i;
-    }
-    __syncthreads();
-    const int j = s_piv;
-
-    // 2. Gather the pivot column.
-    for (int r = tid; r < m; r += kThreads) v[r] = resid[(size_t)r * n + j];
-    __syncthreads();
-
-    // 3. Reorthogonalize: v -= Q (Q^T v) over the i columns built so far
-    // (the later columns of Q are zero, as in the TPU kernel).
-    for (int t = warp; t < i; t += kWarps) {
-      float s = 0.f;
-      for (int r = lane; r < m; r += 32) s += qs[r * k + t] * v[r];
-      s = warp_sum(s);
-      if (lane == 0) qv[t] = s;
-    }
-    __syncthreads();
-    for (int r = tid; r < m; r += kThreads) {
-      float s = 0.f;
-      for (int t = 0; t < i; ++t) s += qs[r * k + t] * qv[t];
-      v[r] -= s;
-    }
-    __syncthreads();
-
-    // 4. Normalise; a zero column gives a zero q_i.
-    if (warp == 0) {
-      float s = 0.f;
-      for (int r = lane; r < m; r += 32) s += v[r] * v[r];
-      s = warp_sum(s);
-      if (lane == 0) {
-        const float nv = sqrtf(s);
-        s_inv = nv > 0.f ? 1.f / nv : 0.f;
-        piv_out[i] = j;
-      }
-    }
-    __syncthreads();
-    for (int r = tid; r < m; r += kThreads) {
-      const float x = v[r] * s_inv;
-      v[r] = x;
-      qs[r * k + i] = x;
-    }
-    __syncthreads();
-
-    // 5-7. One pass per column: R row, rank-1 downdate, norm downdate.
-    float* r_row = r_out + (size_t)i * n;
-    for (int c = tid; c < n; c += kThreads) {
-      float s = 0.f;
-      for (int r = 0; r < m; ++r) s += v[r] * resid[(size_t)r * n + c];
-      for (int r = 0; r < m; ++r) resid[(size_t)r * n + c] -= v[r] * s;
-      r_row[c] = s;
-      const float nc = norms[c];
-      norms[c] = (c == j) ? -1.f : (nc < 0.f ? nc : fmaxf(nc - s * s, 0.f));
-    }
-    __syncthreads();
-  }
-
-  for (int x = tid; x < m * k; x += kThreads) q_out[x] = qs[x];
-}
-
-}  // namespace
-
 extern "C" {
 
-// Launches one CTA per panel of the (batch, m, n) stack `a` on `stream`.
-// `used` is null or (batch, n) with > 0 marking excluded columns;
-// `resid` (batch, m, n) and `norms` (batch, n) are scratch. Returns the
-// CUDA error of the launch (0 on success); does not synchronise.
+// Launches one cluster of `cluster` CTAs per panel of the (batch, m, n)
+// stack `a` on `stream`. `used` is null or (batch, n) with > 0 marking
+// excluded columns. `resid` (batch, m, n) and `norms` (batch, n) are
+// scratch for the global-workspace layout and may be null when
+// `resid_in_smem` is set. `threads` and `smem_bytes` are the block size
+// and the dynamic shared memory of the layout. Returns 0, the CUDA error
+// of the launch, -1 when the card cannot schedule such a cluster, or -2
+// for layout numbers that do not fit together; does not synchronise.
 int rc_qrcp_panel_f32(const float* a, const float* used, float* q, float* r,
                       int* piv, float* resid, float* norms, int batch, int m,
-                      int n, int k, void* stream) {
-  // Q (m, k) plus two m-vectors: the fit rule the wrapper checks.
-  const size_t smem = sizeof(float) * ((size_t)m * k + 2 * (size_t)m);
-  cudaError_t err = cudaFuncSetAttribute(
-      qrcp_panel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  qrcp_panel_kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
-      a, used, q, r, piv, resid, norms, m, n, k);
-  return (int)cudaGetLastError();
+                      int n, int k, int cluster, int threads,
+                      int resid_in_smem, int smem_bytes, void* stream) {
+  return rc_qrcp::launch_panel<float>(a, used, q, r, piv, resid, norms, batch,
+                                      m, n, k, cluster, threads,
+                                      resid_in_smem, smem_bytes, stream);
 }
+
+#ifdef RC_QRCP_CLOCKS
+int rc_qrcp_clocks_f32(long long* out, int reset) {
+  return rc_qrcp::clocks(out, reset);
+}
+#endif
 
 }  // extern "C"

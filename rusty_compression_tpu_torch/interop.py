@@ -33,8 +33,10 @@ def _tensor(x, device) -> torch.Tensor:
     return torch.tensor(arr, device=device)
 
 
-def from_numpy(obj, device="cpu"):
-    """The port's counterpart of ``obj`` on ``device``.
+def from_numpy(obj, device="cuda"):
+    """The port's counterpart of ``obj`` on ``device``: the card unless the
+    caller names another device (without a card the call raises, as torch
+    does; the CPU tests pass ``device="cpu"``).
 
     ``obj`` is a factor container (anything whose class name is one of the
     port's containers and whose dataclass fields match), or an array,

@@ -1,0 +1,152 @@
+"""Times K1 and K2 at every cluster size on one NVIDIA card.
+
+    python3 -m rusty_compression_tpu_torch.ops.kernels.sweep [--quick | --clocks]
+
+For each panel shape of the main paths and each cluster size, the layout
+``layout_at`` gives is forced on the wrapper; the result is held against
+the plain version (pivots equal, q and r within 1e-4) and timed:
+``device_ms`` is the mean of 10 launches queued behind a busy card, the
+kernel alone without the wrapper's host time. One JSON line per (kernel, shape, cluster
+size), with ``chosen`` marking the size ``panel_layout`` picks; the first
+line carries the card's name and power limit and both ptxas reports. The
+layout rule's ``_SPLIT_ELEMENTS`` was set from this table. ``--quick``
+runs one launch per layout and no timing: the first check of a new build.
+
+``--clocks`` builds the kernels with ``-DRC_QRCP_CLOCKS`` instead and
+prints, for the layout ``panel_layout`` picks at each shape, the cycles a
+step spends in each of its parts as thread 0 of the first panel's first
+CTA sees them
+(``clock64``; barrier waits count where they are waited): where a step's
+time goes, on a machine where the vendor's kernel profilers do not run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import json
+import subprocess
+import sys
+
+SHAPES = {
+    "qrcp_panel": [
+        ((24, 16384), 16, False), ((16, 16384), 16, False),
+        ((24, 2048), 16, False), ((37, 301), 29, True),
+        ((8, 24, 2048), 16, False), ((136, 256), 128, True),
+        ((24, 32), 16, False), ((24, 16389), 16, True)],
+    "qrcp_panel_complex": [
+        ((53, 8192), 43, False), ((43, 8192), 43, False),
+        ((136, 256), 128, True), ((37, 301), 29, True),
+        ((8, 24, 2048), 16, False), ((53, 8191), 43, True)],
+}
+
+
+def device_ms(torch, fn, reps: int = 10) -> float:
+    """Device time per launch: the card is kept busy while the host queues
+    ``reps`` launches, so that they run back to back and the wrapper's
+    host time is not in the reading."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+CLOCK_PARTS = ("cta_argmax", "candidates_barrier_join", "qhv", "v_update",
+               "norm_qi", "column_pass")
+
+
+def read_clocks(k1, entry: str, reset: bool) -> list[int]:
+    lib = k1._libs[entry][0]
+    fn = getattr(lib, entry.replace("panel", "clocks"))
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    out = (ctypes.c_longlong * 8)()
+    err = fn(out, int(reset))
+    if err != 0:
+        raise RuntimeError(f"{entry}: reading the clocks failed ({err})")
+    return list(out)
+
+
+def main(argv) -> int:
+    import torch
+
+    from . import qrcp as k1
+
+    if not torch.cuda.is_available():
+        print("sweep: no CUDA device", file=sys.stderr)
+        return 2
+    quick = "--quick" in argv
+    clocks = "--clocks" in argv
+    if clocks:
+        k1._build_defines = ("RC_QRCP_CLOCKS",)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    reports = {entry: [line.strip() for line in report.splitlines()
+                       if "registers" in line or "spill" in line]
+               for entry, (_, report) in k1.build().items()}
+    print(json.dumps({"card": card, "torch": torch.__version__,
+                      "ptxas": reports}), flush=True)
+    entries = {"qrcp_panel": "rc_qrcp_panel_f32",
+               "qrcp_panel_complex": "rc_qrcp_panel_c64"}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    failed = 0
+    for name, shapes in SHAPES.items():
+        wrapper = getattr(k1, name)
+        for shape, k, masked in shapes:
+            *_, m, n = shape
+            a = torch.randn(shape, generator=gen, device="cuda")
+            if name.endswith("complex"):
+                a = torch.complex(a, torch.randn(shape, generator=gen,
+                                                 device="cuda"))
+            a = a * torch.logspace(0.0, -1.0, n, device="cuda")
+            used = None
+            if masked:
+                used = torch.zeros(n, dtype=torch.bool, device="cuda")
+                used[::7] = True
+            q0, r0, piv0 = k1.qrcp_panel_plain(a, k, used)
+            chosen = k1.panel_layout(m, n, k, a.element_size())
+            for cluster in k1.CLUSTER_SIZES:
+                layout = k1.layout_at(m, n, k, a.element_size(), cluster)
+                if layout is None or (clocks and layout != chosen):
+                    continue
+                run = lambda: k1._panel(  # noqa: E731
+                    wrapper, entries[name], a, k, used, layout)
+                row = {"kernel": name, "shape": list(shape), "k": k,
+                       "chosen": layout == chosen,
+                       **dataclasses.asdict(layout)}
+                try:
+                    q, r, piv = run()
+                    torch.cuda.synchronize()
+                except RuntimeError as exc:
+                    print(json.dumps({**row, "error": str(exc)}), flush=True)
+                    failed += layout == chosen
+                    continue
+                row["pivots_equal"] = torch.equal(piv.long(), piv0)
+                row["max_abs_err"] = max(float((q - q0).abs().max()),
+                                         float((r - r0).abs().max()))
+                ok = row["pivots_equal"] and row["max_abs_err"] <= 1e-4
+                failed += not ok
+                if clocks:
+                    read_clocks(k1, entries[name], reset=True)
+                    run()
+                    torch.cuda.synchronize()
+                    cycles = read_clocks(k1, entries[name], reset=False)
+                    row["cycles_per_step"] = {
+                        part: round(count / k)
+                        for part, count in zip(CLOCK_PARTS, cycles)}
+                elif not quick:
+                    row["device_ms"] = device_ms(torch, run)
+                print(json.dumps(row), flush=True)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -7,7 +7,8 @@ with a card and no JAX it runs with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 
 Tolerances: pivots exactly equal; q and r to 1e-4 absolute (f32 and c64,
-another summation order).
+another summation order). Two launches on one panel are bitwise equal
+(no atomics, fixed reduction orders).
 """
 
 import numpy as np
@@ -43,7 +44,7 @@ def _panel(shape, seed=0):
     ((37, 301), 29, True),        # ragged, with a used mask
     ((33, 5), 5, False),          # fewer columns than a warp, k = n
     ((5, 40), 5, False),          # k = m: the residual runs out
-    ((3, 24, 2048), 16, False),   # a batch: one CTA per panel
+    ((3, 24, 2048), 16, False),   # a batch: one cluster per panel
 ])
 def test_kernel_matches_plain(k1, shape, k, masked):
     import torch
@@ -120,7 +121,7 @@ def _complex_panel(shape, seed=0):
     ((43, 2048), 43, False),      # the LQ of C: k = m
     ((37, 301), 29, True),        # ragged, with a used mask
     ((33, 5), 5, False),          # fewer columns than a warp, k = n
-    ((3, 24, 2048), 16, False),   # a batch: one CTA per panel
+    ((3, 24, 2048), 16, False),   # a batch: one cluster per panel
 ])
 def test_complex_kernel_matches_plain(k1, shape, k, masked):
     import torch
@@ -201,3 +202,102 @@ def test_complex_auto_mode_takes_k2(k1):
     assert float(((q @ r)[:, :43] - a[:, ind[:43]]).abs().max()) <= 1e-4
     assert float(((l @ ql)[:20] - c[row_ind[:20]]).abs().max()) <= 1e-4
     assert torch.equal(l, torch.tril(l))
+
+
+# The clustered layouts: (maker, wrapper name, itemsize) for K1 and K2.
+_KERNELS = {"f32": (_panel, "qrcp_panel", "rc_qrcp_panel_f32", 4),
+            "c64": (_complex_panel, "qrcp_panel_complex",
+                    "rc_qrcp_panel_c64", 8)}
+
+
+def _assert_matches_plain(k1, got, a, k, used, steps=None):
+    import torch
+
+    q, r, piv = got
+    q0, r0, piv0 = k1.qrcp_panel_plain(a, k, used)
+    steps = k if steps is None else steps
+    assert torch.equal(piv.long()[..., :steps], piv0[..., :steps])
+    assert float((q - q0)[..., :steps].abs().max()) <= 1e-4
+    assert float((r - r0)[..., :steps, :].abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("kind", ["f32", "c64"])
+@pytest.mark.parametrize("shape,k", [
+    ((24, 16389), 16),     # n no multiple of 32 C: a ragged last slice
+    ((53, 8191), 43),      # the same at the complex core's size
+    ((600, 40), 8),        # fewer columns than 32 a CTA
+    ((16, 4096), 16),      # k = m over a cluster
+    ((8, 24, 2048), 16),   # a batch of clusters
+])
+def test_clustered_layouts_match_plain_and_repeat(k1, kind, shape, k):
+    import torch
+
+    make, name, _, itemsize = _KERNELS[kind]
+    wrapper = getattr(k1, name)
+    a = make(shape)
+    layout = k1.panel_layout(*shape[-2:], k, itemsize)
+    assert layout.cluster > 1
+    got = wrapper(a, k)
+    again = wrapper(a, k)
+    torch.cuda.synchronize()
+    _assert_matches_plain(k1, got, a, k, None)
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("kind", ["f32", "c64"])
+@pytest.mark.parametrize("cluster", [2, 4, 8, 16])
+def test_forced_cluster_sizes(k1, kind, cluster):
+    """Every cluster size on one small panel, one with fewer columns than
+    CTAs (n = 5 at 8 and 16 CTAs: some CTAs own no column)."""
+    import torch
+
+    make, name, entry, itemsize = _KERNELS[kind]
+    for shape, k in (((37, 301), 29), ((33, 5), 5)):
+        a = make(shape)
+        layout = k1.layout_at(*shape, k, itemsize, cluster)
+        got = k1._panel(getattr(k1, name), entry, a, k, None, layout)
+        torch.cuda.synchronize()
+        _assert_matches_plain(k1, got, a, k, None)
+
+
+@pytest.mark.parametrize("kind", ["f32", "c64"])
+def test_masks_over_a_slice_and_over_most_columns(k1, kind):
+    import torch
+
+    make, name, _, itemsize = _KERNELS[kind]
+    wrapper = getattr(k1, name)
+    a = make((24, 4096))
+    layout = k1.panel_layout(24, 4096, 16, itemsize)
+    assert layout.cluster > 1
+    # One CTA's whole slice is used: it never wins over a live column.
+    used = torch.zeros(4096, dtype=torch.bool, device="cuda")
+    used[layout.width:2 * layout.width] = True
+    got = wrapper(a, 16, used=used)
+    torch.cuda.synchronize()
+    _assert_matches_plain(k1, got, a, 16, used)
+    assert not used[got[2].long()].any()
+    # Ten live columns for sixteen steps: the live ones come first, in the
+    # plain version's order; step 11 takes the lowest used column, as
+    # torch.argmax does on a table of -1, and what follows is noise.
+    used = torch.ones(4096, dtype=torch.bool, device="cuda")
+    live = torch.arange(10, device="cuda") * 400 + 3
+    used[live] = False
+    got = wrapper(a, 16, used=used)
+    torch.cuda.synchronize()
+    _assert_matches_plain(k1, got, a, 16, used, steps=11)
+    assert sorted(got[2][:10].tolist()) == live.tolist()
+    assert int(got[2][10]) == 0
+
+
+@pytest.mark.parametrize("kind", ["f32", "c64"])
+def test_rank_deficient_clustered_pivots_stay_permutation(k1, kind):
+    import torch
+
+    _, name, _, itemsize = _KERNELS[kind]
+    dtype = torch.float32 if kind == "f32" else torch.complex64
+    a = torch.zeros((600, 40), dtype=dtype, device="cuda")
+    a[2, :] = 1.0
+    assert k1.panel_layout(600, 40, 16, itemsize).cluster > 1
+    _, _, piv = getattr(k1, name)(a, 16)
+    assert sorted(piv.tolist()) == list(range(16))

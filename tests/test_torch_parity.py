@@ -206,10 +206,10 @@ def test_interop_from_numpy(port):
 
     a = low_rank(3, (30, 20), 1e-3, np.float64)
     jqr = rc.QR.compute_from(jnp.asarray(a), max_rank=8)
-    qr = interop.from_numpy(jqr)
+    qr = interop.from_numpy(jqr, device="cpu")
     assert isinstance(qr, port.rt.QR) and qr.ind.dtype == port.torch.int64
     for name in ("q", "r", "ind"):
         np.testing.assert_array_equal(n(getattr(qr, name)),
                                       np.asarray(getattr(jqr, name)))
-    op = interop.from_numpy(a)
+    op = interop.from_numpy(a, device="cpu")
     assert isinstance(op, port.rt.DenseOperator) and op.shape == (30, 20)

@@ -138,7 +138,7 @@ def test_same_class_as_the_jax_planar_ids(port, shape):
     bound = spectrum_err(shape, k)
     assert e_jax < 100 * bound and e_port < 100 * bound, (e_jax, e_port)
     assert e_port < 10 * max(e_jax, bound), (e_jax, e_port)
-    moved = interop.from_numpy(want)
+    moved = interop.from_numpy(want, device="cpu")
     assert isinstance(moved, port.rt.TwoSidedID)
     assert moved.x.is_complex() and moved.col_ind.dtype == port.torch.int64
     np.testing.assert_allclose(n(moved.to_mat()), np.asarray(want.to_mat()),

@@ -142,8 +142,10 @@ def test_wrapper_rejects_bad_arguments(port, shape, k, used_shape):
 
 
 def test_fit_rule_counts_eight_bytes(port):
-    """Q (m, k) and two m-vectors: 4 bytes an element for K1, 8 for K2."""
+    """Q (m, k), the q pairs, one candidate column, the projections and a
+    partial sum per thread: 4 bytes an element for K1, 8 for K2."""
     k1 = _kernels()
-    assert k1.smem_bytes(53, 43, 8) == 8 * (53 * 43 + 106)
+    assert (k1.panel_layout(53, 8192, 43, 8).smem_bytes
+            == 8 * (53 * 43 + 2 * 53 + 2 * 16 * 53 + 43 + 1024))
     assert k1.kernel_fits(136, 128, 8) and k1.kernel_fits(53, 43, 8)
-    assert k1.kernel_fits(400, 140) and not k1.kernel_fits(400, 140, 8)
+    assert k1.kernel_fits(400, 136) and not k1.kernel_fits(400, 136, 8)
