@@ -37,7 +37,8 @@ raises, and the script exits non-zero without its result line):
    K1 launches per call.
 7. Two-read two-sided ID (config 4b): ``batched_two_sided_id`` of one
    16384^2 f32 Laplace block, rank 16 (blocked RRQR with one 16-wide
-   panel, then the LQ of C through K1); rel err <= 5e-3, skeleton within
+   panel, its pivots by K1 over the whole (24, 16384) sketch, then the LQ
+   of C through K1); rel err <= 5e-3, skeleton within
    1e-3, two K1 launches per call.
 8. Complex two-sided ID (config 6s8k): ``planar_two_sided_id`` of an 8192^2
    c64 block with 96 singular values geomspace(1, 1e-9) (numpy, seed 68),
@@ -45,10 +46,47 @@ raises, and the script exits non-zero without its result line):
    columns, two K2 launches per call. Then the one-read
    ``batched_sketched_two_sided_id`` of the same block: rel err <= 5e-3,
    two K2 launches.
+9. Adaptive rSVD (config 1 at width): ``compress(a, gen,
+   CompressionConfig.ADAPTIVE(1e-3, sample_size=32, max_rank=512))`` of
+   phase 3's 8192^2 block; true rel err <= 5 tol, rank a multiple of 32
+   below the cap, last history entry below tol; rounds and host reads
+   printed. Then config 1 as written: 500^2,
+   ``random_approximate_low_rank_matrix(1, 1e-10)``,
+   ``sample_range_adaptive`` with sample 10, f32 at 1e-4 and f64 at 1e-5;
+   projection residual <= 5 tol.
+10. Adaptive QR of the same 8192^2 block: ``randomized_adaptive_qr`` ->
+    ``column_id()``; ``to_mat`` rel err <= 5 tol, ``ind`` a permutation, C
+    within 1e-3 of the block's columns; the blocked RRQR of B launches K1
+    on its shortlists, the last of them as wide as the rank found.
+11. Config 2: ``hilbert(1024)``, ``QR.compute_from(h, max_rank=64)`` ->
+    ``compress(Adaptive(tol))`` -> ``column_id()`` at its defaults; f32 at
+    1e-5 (blocked, K1 picks the pivots over the whole (72, 1024) sketch)
+    and f64 at 1e-8 (plain pivot rule, no launch); C's columns exact to
+    1e-5 / 1e-12; rel err <= 10 x the optimal rank-k error + 100 eps.
+12. Config 4b1t: ``sketched_two_sided_id(blk, gen, tol=1e-3, max_rank=64)``
+    of phase 4's 16384^2 Laplace block; rel err <= 5e-3, rank <= 64, the
+    column gather bitwise; K1 on the (80, 144) shortlist of the 72-row
+    sketch and on the LQ of C.
+13. Nyström: ``nystrom_block(a, gen, 43)`` of an 8192^2 f32 block with 96
+    singular values geomspace(1, 1e-9); rel err <= 10 sigma_44 / sigma_1,
+    rank 43, U orthonormal to 1e-4; two passes over the block.
+14. The front door over a stack: eight 2048^2 Laplace blocks through
+    ``compress`` with ``RANK(16, method=...)`` for all six methods, and a
+    stack of four of them and four blocks of slower decay with
+    ``ADAPTIVE(1e-3, sample_size=8, max_rank=64)``; each result bitwise
+    the direct ``batched_*`` call's with a generator in the same state;
+    the lanes of the adaptive stack stop at different rounds, below the
+    cap, each within 5 tol and exactly zero beyond its rank. Then a ``FunctionOperator`` (matvec of a 2048^2
+    block) and a 16384^2 ``SparseOperator`` (1 % density) plus a low-rank
+    part as a ``SumOperator`` through ``compress(RANK(16))``, each against
+    the dense matrix of the same operator.
 
-Both launch counts are set to 0 just before each of phases 3-8 and read
+Both launch counts are set to 0 just before each of phases 3-14 and read
 just after it; a kernel that a phase's path must run and that it launched
-no time fails the run. The line before the last is a JSON object with each
+no time fails the run. Every panel shape that a phase launched has to be
+one that phase 2 held against the plain version; a shape whose size
+depends on the data (the rank a tolerance found) is held right after its
+phase, outside the count. The line before the last is a JSON object with each
 kernel's launches, error, times and bound; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Throughput is block bytes over the wall time of one call. A kernel's bound
@@ -59,7 +97,7 @@ a column-pivoted QR (``torch.linalg.qr`` does not pivot), so
 ``library_ms`` is null for both kernels.
 
 ``--profile`` also runs ``torch.profiler`` over six warm calls of each of
-phases 3-8 and prints, per phase, the wall time per call with the tracing
+phases 3-14 and prints, per phase, the wall time per call with the tracing
 on, the device-busy time, the idle share and the device time by kernel
 name.
 """
@@ -185,75 +223,112 @@ def distinct_norm_panel(torch, gen, shape, dtype=None):
     return a * scale
 
 
-def phase_kernel(torch, k1, gen) -> dict:
-    """Each kernel against the plain version; the first case of each is
-    the shape whose times go into the ``kernels`` line."""
-    from rusty_compression_tpu_torch.ops.kernels.sweep import device_ms
+#: Phase 2's cases, (shape, k, mask): mask False, True (every seventh
+#: column used) or "slice" (the first CTA's whole slice used). The first
+#: case of each kernel is the shape whose times go into the ``kernels``
+#: line.
+KERNEL_CASES = {
+    "qrcp_panel": [
+        ((24, 16384), 16, False),     # sketch of the 16384^2 block
+        ((16, 16384), 16, False), ((24, 2048), 16, False),
+        ((37, 301), 29, True), ((8, 24, 2048), 16, False),
+        ((8, 16, 2048), 16, False),   # LQ of C over the batch
+        ((136, 256), 128, True),      # the RRQR's full panels
+        ((24, 32), 16, False),
+        ((24, 32), 16, True),         # a 16-wide panel's shortlist
+        ((24, 16389), 16, True),      # ragged last CTA
+        ((24, 16384), 16, "slice"), ((8, 24, 2048), 16, "slice"),
+        ((600, 40), 8, False),        # fewer columns than 32 a CTA
+        ((72, 1024), 64, True),       # config 2: hilbert(1024), k = 64
+        ((72, 128), 64, True),        # the same through a shortlist
+        ((80, 144), 72, True),        # config 4b1t: the 72-row sketch
+        ((8, 2048, 2048), 16, False)],  # column/row ID of the stack
+    "qrcp_panel_complex": [
+        ((53, 8192), 43, False),      # core of the 8192^2 complex ID
+        ((43, 8192), 43, False), ((136, 256), 128, True),
+        ((37, 301), 29, True), ((8, 24, 2048), 16, False),
+        ((53, 8191), 43, True),       # ragged, residual in L2
+        ((43, 8192), 43, "slice"), ((600, 40), 8, False)],
+}
 
-    # (shape, k, mask): mask False, True (every seventh column used) or
-    # "slice" (the first CTA's whole slice used).
-    cases = {
-        "qrcp_panel": [
-            ((24, 16384), 16, False),     # sketch of the 16384^2 block
-            ((16, 16384), 16, False), ((24, 2048), 16, False),
-            ((37, 301), 29, True), ((8, 24, 2048), 16, False),
-            ((136, 256), 128, True),      # the 4096^2 RRQR's shortlist
-            ((24, 32), 16, False),        # config 4b's shortlist
-            ((24, 16389), 16, True),      # ragged last CTA
-            ((24, 16384), 16, "slice"), ((8, 24, 2048), 16, "slice"),
-            ((600, 40), 8, False)],       # fewer columns than 32 a CTA
-        "qrcp_panel_complex": [
-            ((53, 8192), 43, False),      # core of the 8192^2 complex ID
-            ((43, 8192), 43, False), ((136, 256), 128, True),
-            ((37, 301), 29, True), ((8, 24, 2048), 16, False),
-            ((53, 8191), 43, True),       # ragged, residual in L2
-            ((43, 8192), 43, "slice"), ((600, 40), 8, False)],
-    }
-    out = {}
-    for name, shapes in cases.items():
+
+class KernelChecks:
+    """Phase 2: each kernel against its plain version, shape by shape.
+    ``held`` keeps, per kernel, the ``((panels, m, n), k, masked)`` that
+    passed, in the form the wrappers record what they launched."""
+
+    def __init__(self, torch, k1, gen):
+        self.torch, self.k1, self.gen = torch, k1, gen
+        self.held = {name: set() for name in KERNELS}
+        self.worst = {name: 0.0 for name in KERNELS}
+        self.main = {}
+
+    def hold(self, name: str, shape, k: int, masked, reps: int = 10) -> None:
+        from rusty_compression_tpu_torch.ops.kernels.sweep import device_ms
+
+        torch, k1 = self.torch, self.k1
         fn = getattr(k1, name)
         dtype = torch.complex64 if name.endswith("complex") else None
-        worst, main = 0.0, None
-        for shape, k, masked in shapes:
-            a = distinct_norm_panel(torch, gen, shape, dtype)
-            layout = k1.panel_layout(*shape[-2:], k, a.element_size())
-            used = None
-            if masked:
-                used = torch.zeros(shape[-1], dtype=torch.bool, device="cuda")
-                if masked == "slice":
-                    check(layout.cluster > 1, f"{shape} is not clustered")
-                    used[:layout.width] = True
-                else:
-                    used[::7] = True
-            q, r, piv = fn(a, k, used=used)
-            q0, r0, piv0 = k1.qrcp_panel_plain(a, k, used)
-            torch.cuda.synchronize()
-            check(torch.equal(piv.long(), piv0),
-                  f"{name} pivots at {shape} k={k}")
-            err = max(float((q - q0).abs().max()),
-                      float((r - r0).abs().max()))
-            check(err <= 1e-4, f"{name} |q|, |r| error {err} at {shape} k={k}")
-            again = fn(a, k, used=used)
-            torch.cuda.synchronize()
-            check(all(torch.equal(x, y) for x, y in zip((q, r, piv), again)),
-                  f"{name} at {shape} k={k}: two launches differ")
-            times = {"ms": event_ms(lambda: fn(a, k, used=used)),
-                     "device_ms": device_ms(
-                         torch, lambda: fn(a, k, used=used)),
-                     "plain_ms": event_ms(
-                         lambda: k1.qrcp_panel_plain(a, k, used)),
-                     **panel_bound(shape, k, a.element_size(), masked)}
-            worst = max(worst, err)
-            say("2-kernel", kernel=name, shape=list(shape), k=k,
-                used_mask=masked, cluster=layout.cluster,
-                resid_in_smem=layout.resid_in_smem,
-                smem_bytes=layout.smem_bytes, threads=layout.threads,
-                pivots_equal=True, repeat_bitwise=True, max_abs_err=err,
-                **times)
-            main = main or times
-        out[name] = {"max_abs_err": worst, **main}
+        a = distinct_norm_panel(torch, self.gen, shape, dtype)
+        layout = k1.panel_layout(*shape[-2:], k, a.element_size())
+        used = None
+        if masked:
+            used = torch.zeros(shape[-1], dtype=torch.bool, device="cuda")
+            if masked == "slice":
+                check(layout.cluster > 1, f"{shape} is not clustered")
+                used[:layout.width] = True
+            else:
+                used[::7] = True
+        q, r, piv = fn(a, k, used=used)
+        q0, r0, piv0 = k1.qrcp_panel_plain(a, k, used)
+        torch.cuda.synchronize()
+        check(torch.equal(piv.long(), piv0),
+              f"{name} pivots at {shape} k={k}")
+        err = max(float((q - q0).abs().max()), float((r - r0).abs().max()))
+        check(err <= 1e-4, f"{name} |q|, |r| error {err} at {shape} k={k}")
+        again = fn(a, k, used=used)
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip((q, r, piv), again)),
+              f"{name} at {shape} k={k}: two launches differ")
+        times = {"ms": event_ms(lambda: fn(a, k, used=used), reps),
+                 "device_ms": device_ms(torch, lambda: fn(a, k, used=used)),
+                 "plain_ms": event_ms(
+                     lambda: k1.qrcp_panel_plain(a, k, used), reps),
+                 **panel_bound(shape, k, a.element_size(), masked)}
+        say("2-kernel", kernel=name, shape=list(shape), k=k,
+            used_mask=masked, cluster=layout.cluster,
+            resid_in_smem=layout.resid_in_smem,
+            smem_bytes=layout.smem_bytes, threads=layout.threads,
+            pivots_equal=True, repeat_bitwise=True, max_abs_err=err, **times)
+        self.worst[name] = max(self.worst[name], err)
+        self.main.setdefault(name, times)
+        panels = shape[0] if len(shape) == 3 else 1
+        self.held[name].add(((panels, *shape[-2:]), k, bool(masked)))
+
+    def hold_launched(self, name: str, allowed) -> None:
+        """Hold the shapes ``name`` launched and phase 2 has not seen, if
+        ``allowed(shape, k, masked)`` says their size depends on the data;
+        any other unseen shape fails the run."""
+        launched = getattr(self.k1, name).launched_shapes
+        for shape, k, masked in sorted(launched - self.held[name]):
+            check(allowed(shape, k, masked),
+                  f"{name} was launched at {shape} k={k} masked={masked}, "
+                  f"a shape that phase 2 did not hold")
+            self.hold(name, shape if shape[0] > 1 else shape[1:], k, masked,
+                      reps=5)
+
+    def summary(self) -> dict:
+        return {name: {"max_abs_err": self.worst[name], **self.main[name]}
+                for name in KERNELS}
+
+
+def phase_kernel(torch, k1, gen) -> KernelChecks:
+    checks = KernelChecks(torch, k1, gen)
+    for name, cases in KERNEL_CASES.items():
+        for shape, k, masked in cases:
+            checks.hold(name, shape, k, masked)
     torch.cuda.synchronize()
-    return out
+    return checks
 
 
 def rel_max(got, want) -> float:
@@ -467,9 +542,10 @@ def phase_two_read(torch, k1, gen):
     check(skel_err <= 1e-3, f"skeleton rel err {skel_err} > 1e-3")
     ms = wall_ms(run, reps=10)
     # The pivots come from a random sketch: the error of five more draws,
-    # reported beside the gated first one.
+    # held to the same gate.
     draws = [float(batched_rel_diff_fro(run(), blocks).max())
              for _ in range(5)]
+    check(max(draws) <= 5e-3, f"two-read ID rel err over draws {draws}")
     torch.cuda.synchronize()
     say("7-two-read-id-16384", blocks=[1, size, size], rank=rank,
         rel_err=err, rel_err_more_draws=draws, skeleton_rel_err=skel_err,
@@ -543,6 +619,328 @@ def phase_complex(torch, rt, k1, gen):
     return run
 
 
+def decaying_block(torch, rt, gen, size: int = 8192, inner: int = 400):
+    """Phase 3's block: G1 diag(geomspace(1, 1e-6, inner)) G2, f32."""
+    g1 = rt.random_gaussian(gen, (size, inner), dtype=torch.float32)
+    g2 = rt.random_gaussian(gen, (inner, size), dtype=torch.float32)
+    sigma = torch.logspace(0.0, -6.0, inner, device=gen.device)
+    return (g1 * sigma) @ g2
+
+
+def phase_adaptive_rsvd(torch, rt, gen, size: int = 8192):
+    from rusty_compression_tpu_torch.sampling import _adaptive_loop
+
+    tol, blk, cap = 1e-3, 32, 512
+    a = decaying_block(torch, rt, gen, size)
+    cfg = rt.CompressionConfig.ADAPTIVE(tol, sample_size=blk, max_rank=cap)
+    run = lambda: rt.compress(a, gen, cfg)  # noqa: E731
+    _adaptive_loop.host_reads = 0
+    svd, hist = run()
+    reads = _adaptive_loop.host_reads
+    err = float(rt.rel_diff_fro(svd.to_mat(), a))
+    rounds = int((hist > 0).sum())
+    check(math.isfinite(err) and err <= 5 * tol,
+          f"adaptive rSVD rel err {err} > {5 * tol}")
+    check(svd.rank == rounds * blk and 0 < svd.rank < min(cap, size),
+          f"adaptive rSVD rank {svd.rank} after {rounds} rounds of {blk}")
+    check(float(hist[rounds - 1]) < tol,
+          f"last residual estimate {float(hist[rounds - 1])} >= {tol}")
+    check(reads == rounds + 1, f"{reads} host reads in {rounds} rounds")
+    ms = wall_ms(run, reps=3)
+    passes = 2 * rounds + 1   # the first probe; A^H Q and a probe a round
+    say("9-adaptive-rsvd-8192", block=[size, size], tol=tol, sample_size=blk,
+        max_rank=cap, rank=svd.rank, rounds=rounds, rel_err=err,
+        last_estimate=float(hist[rounds - 1]),
+        loop_host_reads=reads, operator_passes=passes,
+        ms=ms, gbps=passes * size * size * 4 / (ms * 1e-3) / 1e9)
+
+    # Config 1 as the benchmark suite writes it.
+    for dtype, tol1 in ((torch.float32, 1e-4), (torch.float64, 1e-5)):
+        b = rt.random_approximate_low_rank_matrix(
+            gen, (min(500, size), min(500, size)), 1.0, 1e-10, dtype=dtype)
+        run1 = lambda: rt.sample_range_adaptive(b, gen, tol1, 10)  # noqa: E731
+        q, residuals = run1()
+        resid = float(torch.linalg.norm(b - q @ (q.mT @ b))
+                      / torch.linalg.norm(b))
+        check(math.isfinite(resid) and resid <= 5 * tol1,
+              f"config 1 ({dtype}) residual {resid} > {5 * tol1}")
+        check(q.shape[1] == residuals[-1][0] and residuals[-1][1] < tol1,
+              f"config 1 ({dtype}) history {residuals[-1]}")
+        say("9-config-1-500", dtype=str(dtype), tol=tol1, rank=q.shape[1],
+            rounds=len(residuals), rel_residual=resid,
+            ms=wall_ms(run1, reps=3))
+    return run
+
+
+def phase_adaptive_qr(torch, rt, k1, gen, size: int = 8192):
+    tol, blk = 1e-3, 32
+    a = decaying_block(torch, rt, gen, size)
+    run = lambda: rt.randomized_adaptive_qr(  # noqa: E731
+        a, gen, tol, blk, max_rank=512)[0].column_id()
+    before = k1.qrcp_panel.launch_count
+    qr, hist = rt.randomized_adaptive_qr(a, gen, tol, blk, max_rank=512)
+    cid = qr.column_id()
+    torch.cuda.synchronize()
+    launches = k1.qrcp_panel.launch_count - before
+    check(launches >= 1, "the adaptive QR launched no K1")
+    check(qr.rank == len(hist) * blk, f"rank {qr.rank} after {len(hist)} rounds")
+    err = float(rt.rel_diff_fro(qr.to_mat(), a))
+    check(math.isfinite(err) and err <= 5 * tol,
+          f"adaptive QR rel err {err} > {5 * tol}")
+    check(torch.equal(torch.sort(qr.ind).values,
+                      torch.arange(size, device=a.device)),
+          "adaptive QR ind is not a permutation")
+    cols = a[:, cid.col_ind[:cid.rank]]
+    col_err = float((cid.c - cols).abs().max() / cols.abs().max())
+    check(col_err <= 1e-3, f"C is off the block's columns by {col_err}")
+    id_err = float(rt.rel_diff_fro(cid.to_mat(), a))
+    ms = wall_ms(run, reps=3)
+    say("10-adaptive-qr-8192", block=[size, size], tol=tol, rank=qr.rank,
+        rounds=len(hist), rel_err=err, column_rel_err=col_err,
+        column_id_rel_err=id_err, k1_launches_per_call=launches, ms=ms)
+    return run
+
+
+def phase_hilbert(torch, rt, k1, gen, size: int = 1024):
+    """Config 2, through the call the benchmark makes, at its defaults. Q
+    of a (1024, 64) panel does not fit K1, so ``auto`` goes blocked with
+    one 64-wide panel, and at small rank that runs the pivot rule over the
+    whole width of the (72, 1024) sketch: K1 in f32, the plain rule in
+    f64."""
+    from rusty_compression_tpu_torch.utils.kernel_matrices import hilbert
+
+    runs = []
+    for dtype, tol, col_gate, must in ((torch.float32, 1e-5, 1e-5, True),
+                                       (torch.float64, 1e-8, 1e-12, False)):
+        h = hilbert(size, dtype=dtype, device=gen.device)
+        s = torch.linalg.svdvals(h.double())
+
+        def run(h=h, tol=tol):
+            qr = rt.QR.compute_from(h, max_rank=64, generator=gen)
+            return qr.compress(rt.CompressionType.ADAPTIVE(tol)).column_id()
+
+        before = k1.qrcp_panel.launch_count
+        cid = run()
+        torch.cuda.synchronize()
+        launches = k1.qrcp_panel.launch_count - before
+        check((launches > 0) == must,
+              f"config 2 ({dtype}): {launches} K1 launches")
+        err = float(rt.rel_diff_fro(cid.to_mat(), h))
+        e_opt = float(torch.sqrt((s[cid.rank:] ** 2).sum() / (s ** 2).sum()))
+        gate = 10 * e_opt + 100 * float(torch.finfo(dtype).eps)
+        check(math.isfinite(err) and err <= gate,
+              f"config 2 ({dtype}) rel err {err} > {gate}")
+        col_err = float((cid.c - h[:, cid.col_ind[:cid.rank]]).abs().max())
+        check(col_err <= col_gate,
+              f"config 2 ({dtype}) columns off by {col_err}")
+        ms = wall_ms(run, reps=5)
+        say("11-config-2-hilbert", size=size, dtype=str(dtype), tol=tol,
+            rank=cid.rank, rel_err=err, e_opt=e_opt, gate=gate,
+            column_abs_err=col_err, k1_launches_per_call=launches, ms=ms,
+            gbps=size * size * h.element_size() / (ms * 1e-3) / 1e9)
+        runs.append(run)
+    return lambda: [run() for run in runs]
+
+
+def phase_tolerance_id(torch, rt, k1, gen, size: int = 16384):
+    tol, cap = 1e-3, 64
+    blk = laplace_blocks(torch, gen, 1, size)[0]
+    run = lambda: rt.sketched_two_sided_id(  # noqa: E731
+        blk, gen, tol=tol, max_rank=cap)
+    before = k1.qrcp_panel.launch_count
+    ts = run()
+    torch.cuda.synchronize()
+    launches = k1.qrcp_panel.launch_count - before
+    check(launches == 2, f"{launches} K1 launches in the tolerance-mode ID")
+    check(0 < ts.rank <= cap, f"tolerance-mode ID rank {ts.rank}")
+    err = float(rt.rel_diff_fro(ts.to_mat(), blk))
+    check(math.isfinite(err) and err <= 5 * tol,
+          f"tolerance-mode ID rel err {err} > {5 * tol}")
+    cid = rt.sketched_column_id(blk, gen, tol=tol, max_rank=cap)
+    check(torch.equal(cid.c, blk[:, cid.col_ind[:cid.rank]]),
+          "tolerance-mode C is not bitwise A[:, col_ind[:k]]")
+    ms = wall_ms(run, reps=10)
+    say("12-config-4b1t-16384", block=[size, size], tol=tol, max_rank=cap,
+        sketch_rows=min(cap + 8, size), rank=ts.rank, rel_err=err,
+        column_gather_bitwise=True, k1_launches_per_call=launches, ms=ms, blocks_per_s=1 / (ms * 1e-3),
+        gbps=size * size * 4 / (ms * 1e-3) / 1e9)
+    return run
+
+
+def real_fixture(torch, size: int, rank_in: int, seed: int, device):
+    """U diag(geomspace(1, 1e-9)) V^T, f32: config 6s8k's construction in
+    real arithmetic (host QRs of numpy Gaussians, the product in f64 on
+    the card)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    u, _ = np.linalg.qr(rng.standard_normal((size, rank_in)))
+    v, _ = np.linalg.qr(rng.standard_normal((size, rank_in)))
+    sig = np.geomspace(1.0, 1e-9, rank_in)
+    a = (torch.from_numpy(u * sig).to(device)
+         @ torch.from_numpy(v).to(device).mT).to(torch.float32)
+    return a, sig
+
+
+def phase_nystrom(torch, rt, gen, size: int = 8192):
+    from rusty_compression_tpu_torch.parallel import nystrom_block
+
+    rank = 43
+    a, sig = real_fixture(torch, size, 96, 68, gen.device)
+    run = lambda: nystrom_block(a, gen, rank)  # noqa: E731
+    svd = run()
+    err = float(rt.rel_diff_fro(svd.to_mat(), a))
+    gate = 10 * float(sig[rank])
+    check(math.isfinite(err) and err <= gate,
+          f"Nystrom rel err {err} > {gate}")
+    check(svd.rank == rank, f"Nystrom rank {svd.rank}")
+    ortho = float(torch.linalg.matrix_norm(
+        svd.u.mT @ svd.u - torch.eye(rank, device=a.device)))
+    check(ortho < 1e-4, f"Nystrom ||U^T U - I|| {ortho}")
+    ms = wall_ms(run, reps=10)
+    say("13-nystrom-8192", block=[size, size], rank=rank, rel_err=err,
+        gate=gate, ortho_err=ortho, operator_passes=2, ms=ms,
+        gbps=2 * size * size * 4 / (ms * 1e-3) / 1e9)
+    return run
+
+
+def same_state(gen):
+    """A second generator in ``gen``'s state."""
+    import torch
+
+    twin = torch.Generator(device=gen.device)
+    twin.set_state(gen.get_state())
+    return twin
+
+
+def phase_front_door(torch, rt, k1, gen, count: int = 8, size: int = 2048,
+                     sparse_size: int = 16384):
+    import dataclasses
+
+    from rusty_compression_tpu_torch import parallel
+    from rusty_compression_tpu_torch.sampling import _adaptive_loop
+
+    rank, tol = 16, 1e-3
+    blocks = laplace_blocks(torch, gen, count, size)
+    direct = {
+        "rsvd": lambda g: parallel.batched_rsvd(
+            blocks, g, rank, oversample=5, power_iters=0, ortho="auto",
+            small_svd="direct"),
+        "nystrom": lambda g: parallel.batched_nystrom(
+            blocks, g, rank, oversample=5, small_svd="direct"),
+        "column_id": lambda g: parallel.batched_column_id(
+            blocks, g, rank, mode="auto", block_size=128),
+        "row_id": lambda g: parallel.batched_row_id(
+            blocks, g, rank, mode="auto", block_size=128),
+        "two_sided_id": lambda g: parallel.batched_two_sided_id(
+            blocks, g, rank, mode="auto", block_size=128),
+        "sketched_two_sided_id":
+            lambda g: parallel.batched_sketched_two_sided_id(
+                blocks, g, rank, mode="auto", block_size=128),
+    }
+    runs = []
+    for method, call in direct.items():
+        cfg = rt.CompressionConfig.RANK(rank, method=method)
+        before = k1.qrcp_panel.launch_count
+        got = rt.compress(blocks, same_state(gen), cfg)
+        torch.cuda.synchronize()
+        launches = k1.qrcp_panel.launch_count - before
+        want = call(same_state(gen))
+        check(type(got) is type(want) and all(
+            torch.equal(getattr(got, f.name), getattr(want, f.name))
+            for f in dataclasses.fields(want)),
+            f"compress(RANK, {method}) is not the direct batched call")
+        check((launches > 0) == (method not in ("rsvd", "nystrom")),
+              f"compress(RANK, {method}): {launches} K1 launches")
+        errs = parallel.batched_rel_diff_fro(got, blocks)
+        check(bool(torch.isfinite(errs).all()) and float(errs.max()) <= 5e-2,
+              f"compress(RANK, {method}) rel err {float(errs.max())}")
+        run = lambda cfg=cfg: rt.compress(blocks, gen, cfg)  # noqa: E731
+        say("14-front-door-rank", blocks=[count, size, size], method=method,
+            rank=rank, max_rel_err=float(errs.max()), equals_direct=True,
+            k1_launches_per_call=launches, ms=wall_ms(run, reps=5))
+        runs.append(run)
+
+    # The adaptive stack: the Laplace blocks stop after one round, so half
+    # of the lanes get blocks of slower decay (six decades over 24 to 60
+    # singular values) and the loop goes on with the early lanes frozen.
+    stack = blocks.clone()
+    for lane, inner in zip(range(count // 2, count), (24, 36, 48, 60)):
+        stack[lane] = decaying_block(torch, rt, gen, size, inner)
+    cfg = rt.CompressionConfig.ADAPTIVE(tol, sample_size=8, max_rank=64)
+    _adaptive_loop.host_reads = 0
+    svd, ranks, hist = rt.compress(stack, same_state(gen), cfg)
+    reads = _adaptive_loop.host_reads
+    want = parallel.batched_adaptive_rsvd(stack, same_state(gen), tol, 8, 64,
+                                          ortho="auto", small_svd="direct")
+    check(all(torch.equal(getattr(svd, f), getattr(want[0], f))
+              for f in ("u", "s", "vt")) and torch.equal(ranks, want[1]),
+          "compress(ADAPTIVE) is not the direct batched call")
+    errs = parallel.batched_rel_diff_fro(svd, stack)
+    check(bool(torch.isfinite(errs).all()) and float(errs.max()) <= 5 * tol,
+          f"adaptive stack rel err {float(errs.max())} > {5 * tol}")
+    check(len(set(ranks.tolist())) > 1 and int(ranks.max()) < 64,
+          f"adaptive stack ranks {ranks.tolist()}: no lane was frozen "
+          f"while another went on, or one ran into the cap")
+    check(reads == int(ranks.max()) // 8 + 1,
+          f"{reads} host reads for ranks {ranks.tolist()}")
+    beyond = torch.arange(svd.s.shape[-1], device=ranks.device) >= ranks[:, None]
+    check(not bool((svd.s * beyond).any())
+          and not bool((svd.u * beyond[:, None, :]).any())
+          and not bool((svd.vt * beyond[:, :, None]).any()),
+          "adaptive stack: factors beyond a lane's rank are not zero")
+    run = lambda: rt.compress(stack, gen, cfg)  # noqa: E731
+    say("14-front-door-adaptive", blocks=[count, size, size], tol=tol,
+        ranks=ranks.tolist(), rounds=int(ranks.max()) // 8,
+        max_rel_err=float(errs.max()), padding_exactly_zero=True,
+        loop_host_reads=reads, equals_direct=True, ms=wall_ms(run, reps=5))
+    runs.append(run)
+
+    # A matvec closure and a sparse + low-rank sum through compress(RANK).
+    a = blocks[0]
+    fop = rt.FunctionOperator(lambda v: a @ v, a.shape, a.dtype,
+                              conj_matvec=lambda v: a.mT @ v,
+                              device=a.device)
+    cfg = rt.CompressionConfig.RANK(rank, power_iters=1)
+    svd = rt.compress(fop, gen, cfg)
+    err = float(rt.rel_diff_fro(svd.to_mat(), a))
+    check(math.isfinite(err) and err <= 5e-3,
+          f"FunctionOperator rSVD rel err {err}")
+    run_f = lambda: rt.compress(fop, gen, cfg)  # noqa: E731
+    say("14-front-door-function-operator", shape=list(a.shape), rank=rank,
+        rel_err=err, ms=wall_ms(run_f, reps=5))
+    runs.append(run_f)
+
+    n, nnz = sparse_size, sparse_size * sparse_size // 100
+    idx = torch.randint(0, n, (2, nnz), generator=gen, device=gen.device)
+    vals = 1e-6 * torch.randn(nnz, generator=gen, device=gen.device)
+    near = rt.SparseOperator(torch.sparse_coo_tensor(
+        idx, vals, (n, n), check_invariants=True))
+    far = rt.SVD(torch.linalg.qr(rt.random_gaussian(
+                     gen, (n, 24), dtype=torch.float32))[0],
+                 torch.logspace(0.0, -6.0, 24, device=gen.device),
+                 torch.linalg.qr(rt.random_gaussian(
+                     gen, (n, 24), dtype=torch.float32))[0].mT.contiguous())
+    op = near + rt.as_linear_operator(far)
+    check(type(op).__name__ == "SumOperator", "sparse + factored is no sum")
+    svd = rt.compress(op, gen, cfg)
+    dense = near.to_dense() + far.to_mat()
+    err = float(rt.rel_diff_fro(svd.to_mat(), dense))
+    # the rank-16 truncation drops sigma_17.. of the far field and the
+    # whole near field: both measured on the dense matrix of the operator
+    opt = float(torch.sqrt((far.s[rank:] ** 2).sum()
+                           + (near.a.values() ** 2).sum())
+                / torch.linalg.norm(dense))
+    check(math.isfinite(err) and err <= 3 * opt,
+          f"sparse + low-rank rSVD rel err {err} > 3 x {opt}")
+    run_s = lambda: rt.compress(op, gen, cfg)  # noqa: E731
+    say("14-front-door-sparse-operator", shape=[n, n], nnz=near.a._nnz(),
+        far_rank=24, rank=rank, rel_err=err, dropped_part=opt,
+        ms=wall_ms(run_s, reps=5))
+    runs.append(run_s)
+    return lambda: [run() for run in runs]
+
+
 def profile(torch, name: str, run, calls: int = 5) -> None:
     """Device-busy time, idle share and device time by kernel name over
     ``calls`` warm calls of ``run`` (torch.profiler). The wall time is taken
@@ -588,44 +986,73 @@ def main(argv) -> int:
     card = phase_card(torch)
     phase_build(k1)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    kernels = phase_kernel(torch, k1, gen)
+    checks = phase_kernel(torch, k1, gen)
     phase_reference(torch, rt)
 
     # The main paths: each phase with both counts at 0 just before it and
     # read just after; `must` names the kernel its path has to launch.
-    # Phases 6-8 draw from generators of their own, so that what they
+    # Phases from 6 on draw from generators of their own, so that what they
     # compute does not depend on how much the phases before them drew.
-    gen6, gen7, gen8 = (torch.Generator(device="cuda").manual_seed(seed)
-                        for seed in (6, 7, 8))
+    # `late` says which of a phase's K1 shapes have a size that its data
+    # decides; phase 2 holds those right after the phase, outside the count.
+    gens = {seed: torch.Generator(device="cuda").manual_seed(seed)
+            for seed in range(6, 15)}
+    no_late = lambda shape, k, masked: False  # noqa: E731
     paths = [
-        ("3-rsvd-8192", None, lambda: phase_rsvd(torch, rt, gen)),
-        ("4-two-sided-id-16384", "qrcp_panel", lambda: phase_two_sided(
-            torch, rt, k1, gen, "4-two-sided-id-16384", 1, 16384)),
-        ("5-two-sided-id-batch-2048", "qrcp_panel", lambda: phase_two_sided(
-            torch, rt, k1, gen, "5-two-sided-id-batch-2048", 8, 2048)),
-        ("6-rrqr-4096", "qrcp_panel",
-         lambda: phase_rrqr(torch, rt, k1, gen6)),
-        ("7-two-read-id-16384", "qrcp_panel",
-         lambda: phase_two_read(torch, k1, gen7)),
-        ("8-complex-id-8192", "qrcp_panel_complex",
-         lambda: phase_complex(torch, rt, k1, gen8)),
+        ("3-rsvd-8192", None, no_late, lambda: phase_rsvd(torch, rt, gen)),
+        ("4-two-sided-id-16384", "qrcp_panel", no_late,
+         lambda: phase_two_sided(torch, rt, k1, gen, "4-two-sided-id-16384",
+                                 1, 16384)),
+        ("5-two-sided-id-batch-2048", "qrcp_panel", no_late,
+         lambda: phase_two_sided(torch, rt, k1, gen,
+                                 "5-two-sided-id-batch-2048", 8, 2048)),
+        ("6-rrqr-4096", "qrcp_panel", no_late,
+         lambda: phase_rrqr(torch, rt, k1, gens[6])),
+        ("7-two-read-id-16384", "qrcp_panel", no_late,
+         lambda: phase_two_read(torch, k1, gens[7])),
+        ("8-complex-id-8192", "qrcp_panel_complex", no_late,
+         lambda: phase_complex(torch, rt, k1, gens[8])),
+        ("9-adaptive-rsvd-8192", None, no_late,
+         lambda: phase_adaptive_rsvd(torch, rt, gens[9])),
+        # the RRQR's last panel is as wide as the rank found, modulo 128
+        ("10-adaptive-qr-8192", "qrcp_panel",
+         lambda shape, k, masked: (masked and shape[:2] == (1, 136)
+                                   and shape[2] == 2 * k and k % 32 == 0),
+         lambda: phase_adaptive_qr(torch, rt, k1, gens[10])),
+        ("11-config-2-hilbert", "qrcp_panel", no_late,
+         lambda: phase_hilbert(torch, rt, k1, gens[11])),
+        # the LQ of C: a (rank, 16384) panel at the rank the tolerance found
+        ("12-config-4b1t-16384", "qrcp_panel",
+         lambda shape, k, masked: (not masked and shape == (1, k, 16384)
+                                   and k <= 64),
+         lambda: phase_tolerance_id(torch, rt, k1, gens[12])),
+        ("13-nystrom-8192", None, no_late,
+         lambda: phase_nystrom(torch, rt, gens[13])),
+        ("14-front-door", "qrcp_panel", no_late,
+         lambda: phase_front_door(torch, rt, k1, gens[14])),
     ]
     launches = {name: 0 for name in KERNELS}
-    for phase, must, drive in paths:
+    for phase, must, late, drive in paths:
         for name in KERNELS:
             getattr(k1, name).launch_count = 0
+            getattr(k1, name).launched_shapes.clear()
         run = drive()
         torch.cuda.synchronize()
         counts = {name: getattr(k1, name).launch_count for name in KERNELS}
         check(must is None or counts[must] > 0,
               f"phase {phase} launched no {must} kernel")
-        say("launches", path=phase, **counts)
+        say("launches", path=phase, **counts, shapes={
+            name: sorted([list(shape), k, masked] for shape, k, masked
+                         in getattr(k1, name).launched_shapes)
+            for name in KERNELS})
         for name in KERNELS:
             launches[name] += counts[name]
+            checks.hold_launched(name, late)
         if "--profile" in argv:
             profile(torch, phase, run)
         del run
         torch.cuda.empty_cache()
+    kernels = checks.summary()
 
     print(card)
     print(json.dumps({"kernels": [{

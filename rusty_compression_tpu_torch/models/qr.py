@@ -5,7 +5,9 @@ Compress by rank or tolerance, QR -> ColumnID, LQ -> RowID, and the
 randomized ``compute_from_range_estimate``. Pivot convention:
 ``ind[j] = k`` means column ``j`` of ``q @ r`` is column ``k`` of the
 original matrix. A batch of factorizations carries a leading batch axis
-on every field; tolerance truncation is per matrix and runs on the host.
+on every field. Tolerance truncation that slices is per matrix and reads
+the rank on the host; the ``_masked`` forms keep the padded shape, zero
+what lies beyond the rank and stay on the device, so they take a batch.
 """
 
 from __future__ import annotations
@@ -47,6 +49,36 @@ def _tolerance_position(diag_ratios: torch.Tensor, tol: float):
     if not below[idx]:
         return None
     return idx
+
+
+def _tolerance_rank_device(diag: torch.Tensor, tol: float):
+    """``_tolerance_position`` without the host: ``(rank, ok)`` over the
+    last axis of ``diag`` (..., k). ``rank`` (int64) is the suffix-max
+    envelope's truncation rank, or ``k`` where the tolerance is
+    unreachable; ``ok`` is False there (the masked API's stand-in for
+    ``CompressionError``)."""
+    ratios = (diag / diag[..., :1]).abs()
+    envelope = torch.flip(
+        torch.cummax(torch.flip(ratios, (-1,)), dim=-1).values, (-1,))
+    below = envelope < tol
+    ok = below[..., -1]
+    rank = torch.argmax(below.to(torch.uint8), dim=-1)  # the first True
+    return torch.where(ok, rank, diag.shape[-1]), ok
+
+
+def _keep(size: int, rank: torch.Tensor) -> torch.Tensor:
+    """(..., size) bool: index < rank, for ``rank`` of shape (...)."""
+    return torch.arange(size, device=rank.device) < rank[..., None]
+
+
+def _mask_cols(a: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
+    """Zero the columns at index >= rank (shape kept)."""
+    return a * _keep(a.shape[-1], rank)[..., None, :].to(a.dtype)
+
+
+def _mask_rows(a: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
+    """Zero the rows at index >= rank (shape kept)."""
+    return a * _keep(a.shape[-2], rank)[..., :, None].to(a.dtype)
 
 
 def _identity_like(ref: torch.Tensor, rank: int) -> torch.Tensor:
@@ -117,6 +149,21 @@ class QR:
             raise CompressionError(
                 f"Could not compress to relative tolerance {tol!r}")
         return self.compress_qr_rank(pos)
+
+    def compress_qr_tolerance_masked(self, tol: float):
+        """Tolerance truncation that masks instead of slicing, on the
+        device, for one factorization or a batch.
+
+        Returns ``(rank, qr_masked, ok)``: ``qr_masked`` keeps the padded
+        shape with the columns of Q and rows of R beyond ``rank`` zeroed
+        (``to_mat`` and the factored products are exact for the truncated
+        factorization); ``ok`` is False where the tolerance was
+        unreachable, and ``rank`` is then the full rank."""
+        rank, ok = _tolerance_rank_device(
+            torch.diagonal(self.r, dim1=-2, dim2=-1), tol)
+        masked = QR(_mask_cols(self.q, rank), _mask_rows(self.r, rank),
+                    self.ind)
+        return rank, masked, ok
 
     def compress(self, compression_type: CompressionType) -> "QR":
         """Dispatch on the compression selector."""
@@ -197,6 +244,15 @@ class LQ:
             raise CompressionError(
                 f"Could not compress to relative tolerance {tol!r}")
         return self.compress_lq_rank(pos)
+
+    def compress_lq_tolerance_masked(self, tol: float):
+        """Mirror of ``QR.compress_qr_tolerance_masked`` on the L
+        diagonal: ``(rank, lq_masked, ok)``."""
+        rank, ok = _tolerance_rank_device(
+            torch.diagonal(self.l, dim1=-2, dim2=-1), tol)
+        masked = LQ(_mask_cols(self.l, rank), _mask_rows(self.q, rank),
+                    self.ind)
+        return rank, masked, ok
 
     def compress(self, compression_type: CompressionType) -> "LQ":
         """Dispatch on the compression selector."""

@@ -69,6 +69,15 @@ class SVD:
         """``U @ (s * Vt)`` with the row scaling fused."""
         return self.u @ (self.s.to(self.vt.dtype)[..., :, None] * self.vt)
 
+    @with_precision
+    def to_qr(self):
+        """Convert to a pivoted QR: scale the rows of Vt by s, pivoted-QR
+        that, and set ``Q = U Qhat``."""
+        from .qr import QR  # deferred: models.qr sits beside this module
+
+        qr = QR.compute_from(self.s.to(self.vt.dtype)[..., :, None] * self.vt)
+        return QR(self.u @ qr.q, qr.r, qr.ind)
+
     def compress_svd_rank(self, max_rank: int) -> "SVD":
         """Keep the leading ``max_rank`` singular triplets (clamped)."""
         max_rank = min(int(max_rank), self.s.shape[-1])
@@ -85,6 +94,26 @@ class SVD:
             raise CompressionError(
                 f"Could not compress to relative tolerance {tol!r}")
         return self.compress_svd_rank(pos)
+
+    def compress_svd_tolerance_masked(self, tol: float):
+        """Tolerance truncation that masks instead of slicing, on the
+        device, for one SVD or a batch: ``(rank, svd_masked, ok)`` with
+        the singular triplets at index >= rank zeroed (see
+        ``QR.compress_qr_tolerance_masked`` for the contract)."""
+        from .qr import _tolerance_rank_device  # shared device scan
+
+        rank, ok = _tolerance_rank_device(self.s, tol)
+        return rank, self._masked(rank), ok
+
+    def _masked(self, rank: torch.Tensor) -> "SVD":
+        """The triplets at index >= ``rank`` (a tensor of the batch's
+        shape) zeroed, the padded shape kept."""
+        from .qr import _keep
+
+        keep = _keep(self.s.shape[-1], rank)
+        return SVD(self.u * keep[..., None, :].to(self.u.dtype),
+                   self.s * keep.to(self.s.dtype),
+                   self.vt * keep[..., :, None].to(self.vt.dtype))
 
     def compress(self, compression_type: CompressionType) -> "SVD":
         """Dispatch on the compression selector."""

@@ -16,7 +16,8 @@ build takes seconds and needs neither ninja nor PyTorch's headers).
 ``qrcp_panel`` and ``qrcp_panel_complex`` run the plain version for a
 tensor on the CPU and launch their kernel for a CUDA tensor, or raise;
 they never fall back. Each counts its kernel launches in its
-``launch_count``.
+``launch_count`` and keeps the distinct shapes it launched at in its
+``launched_shapes``.
 """
 
 from __future__ import annotations
@@ -324,6 +325,7 @@ def _panel(wrapper, entry: str, a: torch.Tensor, k: int,
             f"{name}: kernel launch failed for {layout}: "
             f"{_LAUNCH_ERRORS.get(err, f'CUDA error {err}')}")
     wrapper.launch_count += 1
+    wrapper.launched_shapes.add(((nb, m, n), k, used is not None))
     return q, r, piv
 
 
@@ -360,3 +362,8 @@ def qrcp_panel_complex(a: torch.Tensor, k: int, *,
 
 qrcp_panel.launch_count = 0
 qrcp_panel_complex.launch_count = 0
+#: The distinct ``((panels, m, n), k, masked)`` each wrapper has launched
+#: its kernel at, beside the count: what a check against the plain version
+#: must cover.
+qrcp_panel.launched_shapes = set()
+qrcp_panel_complex.launched_shapes = set()

@@ -6,14 +6,18 @@
   robust to cond(Y) ~ 1/sqrt(eps) and beyond.
 * ``svqb`` — SVQB (Stathopoulos & Wu 2002): robust at any condition
   number, one small eigh per pass.
+* ``nsqb`` — ``Y (G + sigma I)^{-1/2}`` by the coupled Newton–Schulz
+  iteration: GEMMs only, for mid-iteration re-orthonormalization.
 * ``qr`` — Householder (``torch.linalg.qr``).
 
 ``orthonormalize(method="auto")`` is Householder on both CPU and CUDA for
 now (the TPU picked svqb because its Householder was slow; the choice for
 the card waits for a measurement). The small Cholesky is
 ``torch.linalg.cholesky_ex``: the JAX package's pure-JAX Cholesky existed
-only because XLA's TPU Cholesky ran its matmuls at bf16. ``nsqb`` waits
-for the Newton–Schulz polar module.
+only because XLA's TPU Cholesky ran its matmuls at bf16. ``nsqb`` keeps its
+own copy of the f32 Newton–Schulz inverse square root of the JAX package's
+``ops/ns_polar.py``; the rest of that module (double-float merges) belongs
+to the emulated-f64 pipelines.
 
 All functions act on the last two axes and batch over leading ones.
 """
@@ -26,8 +30,8 @@ from ..utils.dtypes import eps, herm
 from ..utils.precision import with_precision
 from .triangular import triangular_solve
 
-__all__ = ["cholesky_qr", "cholesky_qr2", "shifted_cholesky_qr3", "svqb",
-           "orthonormalize"]
+__all__ = ["cholesky_qr", "cholesky_qr2", "shifted_cholesky_qr3", "nsqb",
+           "svqb", "orthonormalize"]
 
 
 def _shift_magnitude(g: torch.Tensor, m: int) -> torch.Tensor:
@@ -81,6 +85,48 @@ def shifted_cholesky_qr3(y: torch.Tensor):
     return q2, r2 @ r1
 
 
+def _ns_inv_sqrt(a: torch.Tensor, iters: int) -> torch.Tensor:
+    """Coupled Newton–Schulz ``Z ~= A^{-1/2}`` for Hermitian positive
+    definite ``a`` (..., l, l) with ``||a||_2 <= 1`` (the caller scales by
+    a power of two). Invariant ``Y_k = A Z_k``; GEMMs only; stable in the
+    coupled form."""
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    y, z = a, eye.expand_as(a)
+    for _ in range(iters):
+        m = 1.5 * eye - 0.5 * (z @ y)
+        y, z = y @ m, m @ z
+    return z
+
+
+@with_precision
+def nsqb(y: torch.Tensor, shift_rel: float = 1e-5,
+         iters: int = 22) -> torch.Tensor:
+    """All-GEMM approximate orthonormalization ``Q = Y (G + sigma I)^{-1/2}``
+    by the coupled Newton–Schulz inverse square root: no eigh, no
+    Cholesky.
+
+    Directions whose Gram eigenvalue lies above ``shift_rel * lambda_max``
+    come out orthonormal to about ``shift_rel`` plus the iteration's
+    residual; weaker ones degrade to bounded near-duplicates (the span is
+    kept). Column order is kept, not sorted by significance. Meant for
+    re-orthonormalization between operator applications, where the result
+    only preconditions the next product; use ``svqb`` for a final basis.
+    """
+    g = herm(y) @ y
+    rdt = g.real.dtype
+    # power-of-two scaling with an even exponent, so that ||G'|| <= 1 and
+    # its square root is again a power of two
+    rowsum = g.abs().sum(-1).amax(-1).clamp_min(1e-30)
+    e = torch.frexp(rowsum)[1]
+    e = e + (e & 1)
+    one = torch.ones((), dtype=rdt, device=g.device)
+    gs = g * torch.ldexp(one, -e)[..., None, None].to(g.dtype)
+    eye = torch.eye(g.shape[-1], dtype=g.dtype, device=g.device)
+    z = _ns_inv_sqrt(gs + shift_rel * eye, iters)
+    half = torch.ldexp(one, -(e >> 1))[..., None, None]
+    return y @ (z * half.to(z.dtype))
+
+
 def svqb(y: torch.Tensor, passes: int = 3) -> torch.Tensor:
     """SVQB orthonormalization: ``G = Y^H Y`` diagonally scaled,
     eigendecomposed, eigenvalues clipped at ``l * eps * lambda_max``,
@@ -106,7 +152,8 @@ def orthonormalize(y: torch.Tensor, method: str = "auto",
     """Orthonormal basis of the columns of tall-skinny ``y``.
 
     ``method``: ``"auto"`` (Householder), ``"qr"``, ``"cholqr2"``,
-    ``"scholqr3"``, ``"svqb"``. ``passes`` applies to svqb only.
+    ``"scholqr3"``, ``"svqb"``, ``"nsqb"``. ``passes`` applies to svqb
+    only.
     """
     if method in ("auto", "qr"):
         return torch.linalg.qr(y, mode="reduced")[0]
@@ -116,4 +163,6 @@ def orthonormalize(y: torch.Tensor, method: str = "auto",
         return shifted_cholesky_qr3(y)[0]
     if method == "svqb":
         return svqb(y) if passes is None else svqb(y, passes=passes)
+    if method == "nsqb":
+        return nsqb(y)
     raise ValueError(f"unknown orthonormalization method {method!r}")

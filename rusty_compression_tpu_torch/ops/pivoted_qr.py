@@ -243,6 +243,13 @@ def _resolve_mode(mode: str, m: int, n: int, k: int, dtype: torch.dtype,
     the accelerator, fits the kernel), the plain loop for f64/c128 or the
     CPU up to n = 512, the blocked RRQR beyond.
 
+    In the small-rank branch the JAX package means the exact pivot rule
+    (its 12 MB fit rule covers a 1024^2 f32 matrix at k = 64, whose Q does
+    not fit this card's kernel). Where the port has to go blocked there,
+    ``pivoted_qr`` runs the pivot rule over the whole width of the sketch
+    instead of a tournament shortlist (``pivot_candidates=None``): one
+    panel, every column a candidate, as the exact rule has it.
+
     Unlike the JAX package, auto picks the kernel for c64 too: there it
     was held back only until the compiled complex kernel was validated on
     the target backend, and ``chip_smoke.py`` is that validation of K2 on
@@ -262,7 +269,8 @@ def _resolve_mode(mode: str, m: int, n: int, k: int, dtype: torch.dtype,
 def pivoted_qr(a: torch.Tensor, max_rank: int | None = None, *,
                mode: str = "auto", block_size: int = 128,
                sketch_oversample: int = 8, panel_qr: str = "auto",
-               pivot_kernel: str = "auto", pivot_candidates: int = 2,
+               pivot_kernel: str = "auto",
+               pivot_candidates: int | None = None,
                generator: torch.Generator | None = None):
     """Column-pivoted (rank-revealing) QR: ``a[..., :, ind] ~= q @ r``.
 
@@ -282,7 +290,10 @@ def pivoted_qr(a: torch.Tensor, max_rank: int | None = None, *,
         or ``"auto"`` (the kernel for f32/c64 on the card when it fits).
       pivot_candidates: blocked-mode tournament shortlist factor (0 runs
         the pivot rule on all n columns; see
-        ``_qrcp_blocked_from_gaussian``).
+        ``_qrcp_blocked_from_gaussian``). ``None`` is 0 where ``"auto"``
+        goes blocked at small rank (k <= 64 or n <= 128: one panel, and a
+        shortlist of 2k columns out of n loses the good pivots of, say, a
+        Hilbert matrix), else 2, the JAX package's default.
       generator: draws the blocked mode's sketch matrix on ``a``'s device;
         a generator seeded with 0 when none is given.
 
@@ -295,6 +306,9 @@ def pivoted_qr(a: torch.Tensor, max_rank: int | None = None, *,
             f"pivoted_qr expects a matrix, got shape {tuple(a.shape)}")
     m, n = a.shape[-2:]
     k = min(m, n) if max_rank is None else min(int(max_rank), m, n)
+    if pivot_candidates is None:
+        small_rank = mode == "auto" and (k <= 64 or n <= 128)
+        pivot_candidates = 0 if small_rank else 2
     mode = _resolve_mode(mode, m, n, k, a.dtype, a.device)
     if mode == "gs":
         q, r_orig, piv = qrcp_panel_plain(a, k)

@@ -5,7 +5,8 @@
   between two well-separated 3-D point clouds: the admissible H-matrix
   off-diagonal block, numerically low rank.
 
-Built on the device of the inputs, O(mn).
+Built on the device of the inputs (``hilbert``, which has none: on the
+card unless told otherwise), O(mn).
 """
 
 from __future__ import annotations
@@ -18,8 +19,10 @@ __all__ = ["hilbert", "laplace_kernel_block", "random_cloud"]
 
 
 def hilbert(n: int, dtype: torch.dtype = torch.float64,
-            device=None) -> torch.Tensor:
-    """Hilbert matrix ``H[i, j] = 1 / (i + j + 1)`` (n, n)."""
+            device="cuda") -> torch.Tensor:
+    """Hilbert matrix ``H[i, j] = 1 / (i + j + 1)`` (n, n), built on
+    ``device``: the card unless the caller names another device (the CPU
+    tests pass ``device="cpu"``)."""
     i = torch.arange(n, dtype=dtype, device=device)
     return 1.0 / (i[:, None] + i[None, :] + 1.0)
 

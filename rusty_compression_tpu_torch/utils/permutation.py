@@ -20,8 +20,10 @@ import torch
 
 __all__ = [
     "MatrixPermutationMode",
+    "VectorPermutationMode",
     "invert_permutation_vector",
     "apply_matrix_permutation",
+    "apply_vector_permutation",
 ]
 
 
@@ -32,6 +34,13 @@ class MatrixPermutationMode(enum.Enum):
     ROW = "row"
     COLINV = "colinv"
     ROWINV = "rowinv"
+
+
+class VectorPermutationMode(enum.Enum):
+    """Vector permutation modes."""
+
+    INV = "inv"
+    NOINV = "noinv"
 
 
 def invert_permutation_vector(perm: torch.Tensor) -> torch.Tensor:
@@ -58,3 +67,14 @@ def apply_matrix_permutation(mat: torch.Tensor, perm: torch.Tensor,
     if mode in (MatrixPermutationMode.COL, MatrixPermutationMode.COLINV):
         return torch.take_along_dim(mat, perm.unsqueeze(-2), dim=-1)
     return torch.take_along_dim(mat, perm.unsqueeze(-1), dim=-2)
+
+
+def apply_vector_permutation(vec: torch.Tensor, perm: torch.Tensor,
+                             mode: VectorPermutationMode) -> torch.Tensor:
+    """Permute a vector (last axis): ``out[..., i] = vec[..., perm[..., i]]``
+    (``NOINV``) or the same with the inverse permutation (``INV``)."""
+    perm = perm.to(device=vec.device, dtype=torch.int64)
+    perm = perm.reshape((1,) * (vec.ndim - perm.ndim) + perm.shape)
+    if mode is VectorPermutationMode.INV:
+        perm = invert_permutation_vector(perm)
+    return torch.take_along_dim(vec, perm, dim=-1)

@@ -301,3 +301,152 @@ def test_rank_deficient_clustered_pivots_stay_permutation(k1, kind):
     assert k1.panel_layout(600, 40, 16, itemsize).cluster > 1
     _, _, piv = getattr(k1, name)(a, 16)
     assert sorted(piv.tolist()) == list(range(16))
+
+
+# ---------------------------------------------------------------------------
+# The tolerance-driven slice on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape,k", [
+    ((72, 128), 64),        # hilbert(1024) at max_rank 64: the shortlist
+    ((72, 1024), 64),       # the same with the pivot rule at full width
+    ((80, 144), 72),        # the 72-row sketch of the tolerance-mode ID
+    ((136, 64), 32),        # the last panel of a rank-288 RRQR
+    ((136, 192), 96),       # ... of a rank-224 one
+    ((2, 1024, 1024), 16),  # a whole block as the panel: residual in L2
+])
+def test_new_panel_shapes_with_their_masks(k1, shape, k):
+    """The K1 shapes that the adaptive QR, config 2 and the tolerance-mode
+    ID launch, masked as the blocked RRQR masks them (but for the whole
+    block, which the kernel mode factorizes unmasked)."""
+    import torch
+
+    a = _panel(shape, seed=4)
+    used = None
+    if len(shape) == 2:
+        used = torch.zeros(shape[-1], dtype=torch.bool, device="cuda")
+        used[::5] = True
+    got = k1.qrcp_panel(a, k, used=used)
+    again = k1.qrcp_panel(a, k, used=used)
+    torch.cuda.synchronize()
+    _assert_matches_plain(k1, got, a, k, used)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    panels = shape[0] if len(shape) == 3 else 1
+    assert ((panels, *shape[-2:]), k, used is not None) \
+        in k1.qrcp_panel.launched_shapes
+
+
+def _decade_block(size, per_decade, seed, dtype):
+    """U diag(10^(-j / per_decade)) V^T on the host, f64, cast to dtype."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    u, _ = np.linalg.qr(rng.standard_normal((size, size)))
+    v, _ = np.linalg.qr(rng.standard_normal((size, size)))
+    sigma = 10.0 ** (-np.arange(size) / per_decade)
+    return torch.tensor((u * sigma) @ v.T, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype_name,tol,rtol", [("float64", 2.6e-4, 1e-6),
+                                                 ("float32", 2.6e-4, 2e-2)])
+def test_adaptive_loop_on_the_card_against_the_cpu(k1, dtype_name, tol, rtol):
+    """The same Gaussian matrices on both devices, a stack whose lanes
+    fall by a decade every 8, 16 and 32 columns: the same rounds in every
+    lane, the history within rtol (f32: the deflated probe sits near 1e-4
+    of the operator norm, where another summation order shows), zero
+    padding, and one host read a round. The tolerance is chosen so that
+    no estimate of this fixture comes within a factor 1.5 of it."""
+    import torch
+
+    from rusty_compression_tpu_torch import DenseOperator
+    from rusty_compression_tpu_torch.sampling import _adaptive_loop
+
+    dtype = getattr(torch, dtype_name)
+    blocks = torch.stack([_decade_block(256, per, 5 + per, dtype)
+                          for per in (8, 16, 32)])
+    g = torch.Generator().manual_seed(6)
+    omegas = [torch.randn((3, 256, 16), generator=g, dtype=dtype)
+              for _ in range(13)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        _adaptive_loop.host_reads = 0
+        res = _adaptive_loop(DenseOperator(blocks.to(dev)),
+                             iter([o.to(dev) for o in omegas]), tol, 16, 12)
+        out[dev] = [x.cpu() for x in res] + [_adaptive_loop.host_reads]
+    (qc, bc, nc, ic, hc, rc_), (qg, bg, ng, ig, hg, rg) = out["cpu"], out["cuda"]
+    live = hc[hc > 0]
+    assert bool(((live > 1.5 * tol) | (live < tol / 1.5)).all()), live
+    assert torch.equal(nc, ng) and torch.equal(ic, ig) and rc_ == rg
+    assert len(set(ng.tolist())) == 3 and rg == int(ig.max()) + 1
+    # an estimate within ~30 eps of the operator norm is roundoff itself
+    floor = 30 * torch.finfo(dtype).eps
+    np.testing.assert_allclose(hg.numpy(), hc.numpy(), rtol=rtol, atol=floor)
+    for i in range(3):
+        k = int(ng[i])
+        assert not qg[i, :, k:].any() and not bg[i, k:].any()
+    np.testing.assert_allclose((qg @ bg).numpy(), (qc @ bc).numpy(),
+                               atol=10 * rtol * tol)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "float64", "complex64"])
+def test_sparse_operator_products_on_the_card(k1, dtype_name):
+    """``A X`` and ``A^H X`` of a sparse operator on the card against the
+    dense products (1e-5 f32/c64, 1e-12 f64, of the largest entry), from a
+    COO and from a CSR tensor."""
+    import torch
+
+    from rusty_compression_tpu_torch import SparseOperator
+
+    dtype = getattr(torch, dtype_name)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    dense = torch.randn((600, 400), generator=g, device="cuda").to(dtype)
+    if dtype.is_complex:
+        dense = dense + 1j * torch.randn((600, 400), generator=g,
+                                         device="cuda")
+    dense = dense * (torch.rand((600, 400), generator=g, device="cuda") < 0.02)
+    x = torch.randn((400, 5), generator=g, device="cuda").to(dtype)
+    y = torch.randn((600, 5), generator=g, device="cuda").to(dtype)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    for a in (dense.to_sparse_coo(), dense.to_sparse_csr()):
+        op = SparseOperator(a)
+        assert op.device.type == "cuda" and op.dtype == dtype
+        for got, want in ((op.matmat(x), dense @ x),
+                          (op.conj_matmat(y), dense.mH @ y)):
+            assert float((got - want).abs().max()) <= tol * float(
+                want.abs().max())
+        assert torch.equal(op.to_dense(), dense)
+
+
+def test_compress_of_a_c64_block_goes_through_k2(k1):
+    """A complex target takes the normal paths: the ID methods of
+    ``compress`` launch K2 on the card, and C is bitwise columns of the
+    block."""
+    import torch
+
+    import rusty_compression_tpu_torch as rt
+
+    rng = np.random.default_rng(8)
+    u, _ = np.linalg.qr(rng.standard_normal((1024, 64))
+                        + 1j * rng.standard_normal((1024, 64)))
+    v, _ = np.linalg.qr(rng.standard_normal((768, 64))
+                        + 1j * rng.standard_normal((768, 64)))
+    a = torch.tensor((u * np.geomspace(1.0, 1e-6, 64)) @ v.conj().T,
+                     dtype=torch.complex64, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    k2 = k1.qrcp_panel_complex
+    for method, launches in (("sketched_two_sided_id", 2), ("column_id", 1),
+                             ("two_sided_id", 2), ("row_id", 1)):
+        before = k2.launch_count
+        f = rt.compress(a, g, rt.CompressionConfig.RANK(24, method=method))
+        torch.cuda.synchronize()
+        assert k2.launch_count - before == launches, method
+        assert f.to_mat().dtype == torch.complex64 and f.rank == 24
+        # sigma_25 / sigma_1 = 10^(-6 * 24 / 63) = 5.2e-3; an ID may lose
+        # a small multiple of it
+        assert float(rt.rel_diff_fro(f.to_mat(), a)) < 10 * 5.2e-3
+    cid = rt.sketched_column_id(a, g, rank=24)
+    assert torch.equal(cid.c, a[:, cid.col_ind[:24]])
+    svd, hist = rt.compress(a, g, rt.CompressionConfig.ADAPTIVE(
+        1e-3, sample_size=8))
+    assert float(rt.rel_diff_fro(svd.to_mat(), a)) < 5e-3

@@ -181,7 +181,8 @@ def test_kernel_matrices(port):
 
     from rusty_compression_tpu_torch.utils import kernel_matrices as km
 
-    np.testing.assert_allclose(n(km.hilbert(7)), np.asarray(jkm.hilbert(7)),
+    np.testing.assert_allclose(n(km.hilbert(7, device="cpu")),
+                               np.asarray(jkm.hilbert(7)),
                                rtol=1e-15)
     rng = np.random.default_rng(2)
     x = rng.uniform(-0.5, 0.5, (40, 3))
@@ -213,3 +214,76 @@ def test_interop_from_numpy(port):
                                       np.asarray(getattr(jqr, name)))
     op = interop.from_numpy(a, device="cpu")
     assert isinstance(op, port.rt.DenseOperator) and op.shape == (30, 20)
+
+
+# ---------------------------------------------------------------------------
+# Helpers of the tolerance-driven slice
+# ---------------------------------------------------------------------------
+
+
+def decade_block(seed: int, shape, per_decade: int, dtype=np.float64):
+    """``U diag(10^(-j / per_decade)) V^H``: every ``per_decade`` columns
+    the spectrum falls by ten, so an adaptive sampler with that block size
+    sees its residual estimate fall by about ten a round, far from any
+    tolerance that is not a power of ten times the first estimate."""
+    rng = np.random.default_rng(seed)
+    m, ncols = shape
+    k = min(m, ncols)
+    cplx = np.issubdtype(dtype, np.complexfloating)
+
+    def gaussian(rows):
+        g = rng.standard_normal((rows, k))
+        return g + 1j * rng.standard_normal((rows, k)) if cplx else g
+
+    u, _ = np.linalg.qr(gaussian(m))
+    v, _ = np.linalg.qr(gaussian(ncols))
+    sigma = 10.0 ** (-np.arange(k) / per_decade)
+    return ((u * sigma) @ v.conj().T).astype(dtype)
+
+
+def jax_adaptive_omegas(key, ncols: int, blk: int, count: int, dtype):
+    """The Gaussian matrices of JAX ``_adaptive_loop(op, key, ...)``:
+    ``key, k0 = split(key)`` for the first probe and ``key, k1 =
+    split(key)`` in each round (sampling.py:184, :221)."""
+    out = []
+    for _ in range(count):
+        key, sub = jax.random.split(key)
+        out.append(jax_gaussian(sub, (ncols, blk), dtype))
+    return out
+
+
+def jax_adaptive_omegas_stack(key, lanes: int, ncols: int, blk: int,
+                              count: int, dtype):
+    """The same for ``vmap`` over ``split(key, lanes)``: one (lanes, n, blk)
+    matrix a round."""
+    per_lane = [jax_adaptive_omegas(k, ncols, blk, count, dtype)
+                for k in block_keys(key, lanes)]
+    return [np.stack([lane[i] for lane in per_lane]) for i in range(count)]
+
+
+def jax_nystrom_omegas(key, m: int, ncols: int, k: int, oversample: int,
+                       dtype, psi_oversample: float = 1.5):
+    """``Omega`` and ``Psi^H`` of JAX ``nystrom_svd`` (sampling.py:364-368)."""
+    l = k + oversample
+    l2 = max(int(l * psi_oversample), l + 4)
+    k_om, k_ps = jax.random.split(key)
+    return (jax_gaussian(k_om, (ncols, l), dtype),
+            jax_gaussian(k_ps, (m, l2), dtype))
+
+
+def feed_gaussians(monkeypatch, mats):
+    """Make the port's samplers take ``mats``, in order, where they would
+    draw a Gaussian matrix from their generator (shapes are checked), so
+    that a public entry point computes on the JAX package's draws. Returns
+    the queue: what is left of it was not drawn."""
+    import rusty_compression_tpu_torch.sampling as sampling
+
+    queue = list(mats)
+
+    def fake(generator, shape, dtype=None, device=None):
+        mat = queue.pop(0)
+        assert tuple(mat.shape) == tuple(shape), (mat.shape, shape)
+        return t(mat)
+
+    monkeypatch.setattr(sampling, "random_gaussian", fake)
+    return queue
