@@ -80,8 +80,28 @@ raises, and the script exits non-zero without its result line):
     block) and a 16384^2 ``SparseOperator`` (1 % density) plus a low-rank
     part as a ``SumOperator`` through ``compress(RANK(16))``, each against
     the dense matrix of the same operator.
+15-21. The tol <= 1e-8 pipelines in f64 / c128, at the sizes of
+    ``bench_suite.py`` (no kernel lies on their path; each line gives ms
+    per call, GB/s at 8 bytes an element (16 for c128), rank, rel err
+    against its gate and the host reads of one call, ``highacc._read``):
+    15 config 6, ``refined_rsvd`` and ``refined_rsvd_fused`` of a 4096^2
+    block with sigma_i = 10^(-10 i / 119) over 160 terms, round_rank 132:
+    resid <= 5e-8, rank within 10 of the crossing; the card's SVD of the
+    core (through its QR) against numpy's (<= 1e-9 sigma_1), and the
+    SVD of the whole core with each cuSOLVER driver.
+    16 config 1h, growth of a 512^2 block (decay 120). 17 config 1hb, the
+    batched growth of eight 256^2 blocks, then fixed rounds with block 0
+    Gaussian (``on_unreachable="mark"``): it alone is marked. 18 config
+    2h, ``refined_column_id`` of f64 ``hilbert(1024)``: rel err <= 5e-8,
+    columns bitwise, the core's pivots up to the rank equal to scipy's
+    ``?geqp3`` on the same core. 19 config 4h, ``refined_two_sided_id`` of
+    an 8192^2 f64 Laplace block (clouds of ``rng(44)`` 3 apart): rel err
+    <= 1e-7, skeleton bitwise, pivots as in 18. 20 config 6c, 2048^2 c128
+    (decay 60, 96 terms), ``refined_rsvd`` and ``refined_rsvd_planar``.
+    21 ``compress(ADAPTIVE(1e-8, highacc=True, round_rank=k))`` of phase
+    15's block and phase 17's stack, bitwise the direct calls.
 
-Both launch counts are set to 0 just before each of phases 3-14 and read
+Both launch counts are set to 0 just before each of phases 3-21 and read
 just after it; a kernel that a phase's path must run and that it launched
 no time fails the run. Every panel shape that a phase launched has to be
 one that phase 2 held against the plain version; a shape whose size
@@ -97,7 +117,7 @@ a column-pivoted QR (``torch.linalg.qr`` does not pivot), so
 ``library_ms`` is null for both kernels.
 
 ``--profile`` also runs ``torch.profiler`` over six warm calls of each of
-phases 3-14 and prints, per phase, the wall time per call with the tracing
+phases 3-21 and prints, per phase, the wall time per call with the tracing
 on, the device-busy time, the idle share and the device time by kernel
 name.
 """
@@ -941,6 +961,314 @@ def phase_front_door(torch, rt, k1, gen, count: int = 8, size: int = 2048,
     return lambda: [run() for run in runs]
 
 
+# ---------------------------------------------------------------------------
+# Phases 15-21: the tol <= 1e-8 pipelines in f64 / c128 (no kernel)
+# ---------------------------------------------------------------------------
+
+
+def decay_block(torch, rng, size: int, inner: int, decay_rank: int,
+                complex_: bool = False, floor: float = 0.0):
+    """``U diag(max(10^(-10 i / (decay_rank - 1)), floor)) V^H`` with U, V the
+    Q factors of host numpy Gaussians (size, inner), the product in f64 /
+    c128 on the card; and the index of the spectrum's 1e-8 crossing."""
+    import numpy as np
+
+    sig = np.maximum(10.0 ** (-10.0 * np.arange(inner) / (decay_rank - 1)),
+                     floor)
+
+    def basis():
+        g = rng.standard_normal((size, inner))
+        if complex_:
+            g = g + 1j * rng.standard_normal((size, inner))
+        return torch.from_numpy(np.linalg.qr(g)[0]).cuda()
+
+    u, v = basis(), basis()
+    cross = int(np.argmax(sig / sig[0] < 1e-8))
+    return (u * torch.from_numpy(sig).cuda().to(u.dtype)) @ v.mH, cross
+
+
+def rel_fro(torch, got, a) -> float:
+    return float(torch.linalg.norm(got - a) / torch.linalg.norm(a))
+
+
+def svd_rel(torch, out, a) -> float:
+    """``||A - U S V^H|| / ||A||`` on the card in the block's dtype."""
+    return rel_fro(torch, out.u @ (out.s.to(out.u.dtype)[:, None] * out.vt),
+                   a)
+
+
+def reads_of(ha, fn):
+    """``(result, host reads)`` of one call of ``fn``."""
+    before = ha._read.count
+    out = fn()
+    return out, ha._read.count - before
+
+
+def refined_line(phase, torch, ha, run, a, gate, cross=None, reps=5,
+                 **fields):
+    """Drive ``run`` once (gates: residual, rank at the crossing +- 10), then
+    time it; print one line. Returns the first result."""
+    out, reads = reads_of(ha, run)
+    torch.cuda.synchronize()
+    err = svd_rel(torch, out, a)
+    check(math.isfinite(err) and err <= gate,
+          f"{phase} rel err {err} > {gate}")
+    if cross is not None:
+        check(abs(out.rank - cross) <= 10,
+              f"{phase} rank {out.rank}, crossing {cross}")
+    ms = wall_ms(run, reps=reps)
+    say(phase, block=list(a.shape), dtype=str(a.dtype), rank=out.rank,
+        crossing=cross, rel_err=err, gate=gate, host_reads=reads, ms=ms,
+        gbps=a.numel() * a.element_size() / (ms * 1e-3) / 1e9,
+        opt_resid=out.opt_resid, history=list(out.history)[:8], **fields)
+    return out
+
+
+def config_6_block(torch):
+    import numpy as np
+
+    return decay_block(torch, np.random.default_rng(6), 4096, 160, 120)
+
+
+def phase_refined_rsvd(torch, rt, gen):
+    """Config 6: 4096^2 f64, sigma_i = 10^(-10 i / 119) over 160 terms,
+    round_rank 132, one refinement round; and the card's small SVD of the
+    core against numpy's on the same core."""
+    import numpy as np
+
+    from rusty_compression_tpu_torch import highacc as ha
+
+    a, cross = config_6_block(torch)
+    runs = []
+    for entry in ("refined_rsvd", "refined_rsvd_fused"):
+        run = lambda f=getattr(rt, entry): f(  # noqa: E731
+            a, gen, round_rank=132, tol=1e-8, refine_rounds=1)
+        refined_line("15-refined-rsvd-4096", torch, ha, run, a, 5e-8, cross,
+                     entry=entry)
+        runs.append(run)
+    _, b, _, _ = rt.refined_capture(a, gen, round_rank=132)
+    want = np.linalg.svd(b.cpu().numpy(), compute_uv=False)
+    # the pipeline's route (QR of the core, SVD of its R factor), then
+    # cuSOLVER's SVD of the whole core with each driver, for the record
+    routes = [("qr+svd", lambda: ha._core_svd(b))] + [
+        (driver or "default", lambda d=driver: torch.linalg.svd(
+            b, full_matrices=False, driver=d))
+        for driver in (None, "gesvd", "gesvdj")]
+    for route, fn in routes:
+        err = float(np.abs(fn()[1].cpu().numpy() - want).max() / want[0])
+        if route == "qr+svd":
+            check(err <= 1e-9, f"core singular values off numpy's by {err}")
+        say("15-core-svd", core=list(b.shape), route=route,
+            max_abs_err_over_s0=err, ms=event_ms(fn, reps=5))
+    return lambda: [run() for run in runs]
+
+
+def phase_growth(torch, rt, gen):
+    """Config 1h: 512^2 f64, rng(18), decay 120, tol alone."""
+    import numpy as np
+
+    from rusty_compression_tpu_torch import highacc as ha
+
+    a, cross = decay_block(torch, np.random.default_rng(18), 512, 512, 120,
+                           floor=1e-12)
+    run = lambda: rt.refined_rsvd_fused(a, gen, tol=1e-8)  # noqa: E731
+    refined_line("16-growth-512", torch, ha, run, a, 5e-8, cross)
+    return run
+
+
+def config_1hb_stack(torch):
+    import numpy as np
+
+    dks = [30 + 10 * (i % 4) for i in range(8)]
+    blocks = []
+    for i, dk in enumerate(dks):
+        sig = np.maximum(10.0 ** (-10.0 * np.arange(256) / (dk - 1)), 1e-12)
+        u = np.linalg.qr(np.random.default_rng(50 + i)
+                         .standard_normal((256, 256)))[0]
+        v = np.linalg.qr(np.random.default_rng(80 + i)
+                         .standard_normal((256, 256)))[0]
+        blocks.append((u * sig) @ v.T)
+    crossings = [int(np.argmax(10.0 ** (-10.0 * np.arange(256) / (dk - 1))
+                               < 1e-8)) for dk in dks]
+    return torch.from_numpy(np.stack(blocks)).cuda(), crossings
+
+
+def check_stack(torch, phase, outs, stack, crossings, lanes):
+    errs = []
+    for i in lanes:
+        o = outs[i]
+        err = svd_rel(torch, o, stack[i])
+        check(o.tol_ok and math.isfinite(err) and err <= 5e-8
+              and abs(o.rank - crossings[i]) <= 10,
+              f"{phase} block {i}: tol_ok {o.tol_ok}, rank {o.rank} "
+              f"(crossing {crossings[i]}), rel err {err}")
+        errs.append(err)
+    return errs
+
+
+def phase_batched_growth(torch, rt, gen):
+    """Config 1hb: eight 256^2 blocks, decays 30/40/50/60 twice; the batched
+    growth, then fixed rounds (round_rank 56, ``on_unreachable="mark"``)
+    with block 0 a Gaussian block."""
+    from rusty_compression_tpu_torch import highacc as ha
+
+    stack, crossings = config_1hb_stack(torch)
+    run = lambda: rt.refined_rsvd_fused_batch(stack, gen, tol=1e-8)  # noqa: E731
+    outs, reads = reads_of(ha, run)
+    errs = check_stack(torch, "17-batched-growth", outs, stack, crossings,
+                       range(8))
+    ms = wall_ms(run, reps=5)
+    say("17-batched-growth", blocks=list(stack.shape), ranks=[
+        o.rank for o in outs], crossings=crossings, max_rel_err=max(errs),
+        host_reads=reads, ms=ms, blocks_per_s=8 / (ms * 1e-3),
+        gbps=stack.numel() * 8 / (ms * 1e-3) / 1e9)
+
+    marked = stack.clone()
+    marked[0] = torch.randn((256, 256), generator=gen, device="cuda",
+                            dtype=torch.float64)
+    run_m = lambda: rt.refined_rsvd_fused_batch(  # noqa: E731
+        marked, gen, round_rank=56, tol=1e-8, on_unreachable="mark")
+    outs, reads = reads_of(ha, run_m)
+    check(not outs[0].tol_ok, "the Gaussian block was not marked")
+    errs = check_stack(torch, "17-fixed-round-mark", outs, marked, crossings,
+                       range(1, 8))
+    ms = wall_ms(run_m, reps=5)
+    say("17-fixed-round-mark", blocks=list(marked.shape),
+        ranks=[o.rank for o in outs], tol_ok=[o.tol_ok for o in outs],
+        max_rel_err_unmarked=max(errs), host_reads=reads, ms=ms,
+        gbps=marked.numel() * 8 / (ms * 1e-3) / 1e9)
+    return lambda: (run(), run_m())
+
+
+def core_pivots_as_geqp3(torch, rt, a, gen, rank: int):
+    """The core that the ID's capture builds (a generator in ``gen``'s
+    state), pivoted on the card and by scipy's ``?geqp3`` on the host:
+    ``ind[:rank]`` must be equal. Returns the first index where they part
+    and the ms of the card's pivot rule on that core."""
+    import numpy as np
+    import scipy.linalg
+
+    from rusty_compression_tpu_torch.highacc_id import _core_qrcp
+
+    _, b, _, _ = rt.refined_capture(a, same_state(gen), tol=1e-8)
+    _, ind = _core_qrcp(b)
+    _, _, piv = scipy.linalg.qr(b.cpu().numpy(), mode="economic",
+                                pivoting=True)
+    ind = ind.cpu().numpy()
+    check(np.array_equal(ind[:rank], piv[:rank]),
+          f"core pivots differ from ?geqp3's before the rank {rank}")
+    differ = np.nonzero(ind[:len(piv)] != piv)[0]
+    return (int(differ[0]) if differ.size else len(piv),
+            {"core": list(b.shape),
+             "pivot_rule_ms": wall_ms(lambda: _core_qrcp(b), reps=3)})
+
+
+def phase_hilbert_id(torch, rt, gen):
+    """Config 2h: f64 ``hilbert(1024)``, ``refined_column_id(tol=1e-8)``."""
+    from rusty_compression_tpu_torch import highacc as ha
+    from rusty_compression_tpu_torch.utils.kernel_matrices import hilbert
+
+    h = hilbert(1024, dtype=torch.float64, device="cuda")
+    twin = same_state(gen)
+    run = lambda: rt.refined_column_id(h, gen, tol=1e-8)  # noqa: E731
+    cid, reads = reads_of(ha, run)
+    agree, pivot_rule = core_pivots_as_geqp3(torch, rt, h, twin, cid.rank)
+    check(torch.equal(rt.refined_column_id(h, same_state(twin),
+                                           tol=1e-8).col_ind, cid.col_ind),
+          "same generator state, other pivots")
+    err = rel_fro(torch, cid.c @ cid.z, h)
+    check(math.isfinite(err) and err <= 5e-8, f"config 2h rel err {err}")
+    check(torch.equal(cid.c, h[:, cid.col_ind[:cid.rank]]),
+          "config 2h columns are not bitwise")
+    ms = wall_ms(run, reps=5)
+    say("18-hilbert-column-id", size=1024, rank=cid.rank, rel_err=err,
+        gate=5e-8, columns_bitwise=True, pivots_as_geqp3_to=agree,
+        **pivot_rule, host_reads=reads, ms=ms, gbps=h.numel() * 8 / (ms * 1e-3) / 1e9)
+    return run
+
+
+def phase_two_sided_refined(torch, rt, gen, size: int = 8192):
+    """Config 4h: 8192^2 f64 Laplace block between two clouds of
+    ``rng(44)`` 3 apart, ``refined_two_sided_id(tol=1e-8)``."""
+    import numpy as np
+
+    from rusty_compression_tpu_torch import highacc as ha
+    from rusty_compression_tpu_torch.utils.kernel_matrices import (
+        laplace_kernel_block)
+
+    rng = np.random.default_rng(44)
+    x = rng.uniform(-1.0, 1.0, (size, 3))
+    y = rng.uniform(-1.0, 1.0, (size, 3))
+    y[:, 0] += 3.0
+    a = laplace_kernel_block(torch.from_numpy(x).cuda(),
+                             torch.from_numpy(y).cuda())
+    twin = same_state(gen)
+    run = lambda: rt.refined_two_sided_id(a, gen, tol=1e-8)  # noqa: E731
+    ts, reads = reads_of(ha, run)
+    agree, pivot_rule = core_pivots_as_geqp3(torch, rt, a, twin, ts.rank)
+    k = ts.rank
+    err = rel_fro(torch, ts.c @ (ts.x @ ts.r), a)
+    check(math.isfinite(err) and err <= 1e-7, f"config 4h rel err {err}")
+    check(torch.equal(ts.x, a[ts.row_ind[:k][:, None], ts.col_ind[:k]]),
+          "config 4h skeleton is not bitwise")
+    ms = wall_ms(run, reps=3)
+    say("19-two-sided-id-8192", block=[size, size], rank=k, rel_err=err,
+        gate=1e-7, skeleton_bitwise=True, pivots_as_geqp3_to=agree,
+        **pivot_rule, host_reads=reads, ms=ms, blocks_per_s=1 / (ms * 1e-3),
+        gbps=a.numel() * 8 / (ms * 1e-3) / 1e9)
+    return run
+
+
+def phase_refined_complex(torch, rt, gen):
+    """Config 6c: 2048^2 c128, rng(66), decay 60 over 96 terms,
+    round_rank 66."""
+    import numpy as np
+
+    from rusty_compression_tpu_torch import highacc as ha
+
+    a, cross = decay_block(torch, np.random.default_rng(66), 2048, 96, 60,
+                           complex_=True)
+    runs = []
+    for entry in ("refined_rsvd", "refined_rsvd_planar"):
+        run = lambda f=getattr(rt, entry): f(  # noqa: E731
+            a, gen, round_rank=66, tol=1e-8, refine_rounds=1)
+        refined_line("20-refined-c128-2048", torch, ha, run, a, 5e-8, cross,
+                     entry=entry)
+        runs.append(run)
+    return lambda: [run() for run in runs]
+
+
+def phase_refined_front_door(torch, rt, gen):
+    """``compress(ADAPTIVE(1e-8, highacc=True, round_rank=k))`` of phase
+    15's block and of phase 17's stack: bitwise the direct calls."""
+    from rusty_compression_tpu_torch.highacc import refined_rsvd_batch
+
+    a, _ = config_6_block(torch)
+    stack, _ = config_1hb_stack(torch)
+    runs = []
+    for target, k in ((a, 132), (stack, 56)):
+        cfg = rt.CompressionConfig.ADAPTIVE(1e-8, highacc=True, round_rank=k)
+        got = rt.compress(target, same_state(gen), cfg)
+        if target.ndim == 2:
+            got = [got[0]]
+            want = [rt.refined_rsvd(target, same_state(gen), round_rank=k,
+                                    tol=1e-8)]
+        else:
+            want = refined_rsvd_batch(list(target), same_state(gen),
+                                      round_rank=k, tol=1e-8)
+        check(len(got) == len(want) and all(
+            torch.equal(getattr(x, f), getattr(y, f))
+            for x, y in zip(got, want) for f in ("u", "s", "vt")),
+            f"compress(highacc=True) of {list(target.shape)} is not the "
+            f"direct call")
+        run = lambda t=target, c=cfg: rt.compress(t, gen, c)  # noqa: E731
+        say("21-front-door-highacc", target=list(target.shape), round_rank=k,
+            ranks=[o.rank for o in got], equals_direct=True,
+            ms=wall_ms(run, reps=3))
+        runs.append(run)
+    return lambda: [run() for run in runs]
+
+
 def profile(torch, name: str, run, calls: int = 5) -> None:
     """Device-busy time, idle share and device time by kernel name over
     ``calls`` warm calls of ``run`` (torch.profiler). The wall time is taken
@@ -996,7 +1324,7 @@ def main(argv) -> int:
     # `late` says which of a phase's K1 shapes have a size that its data
     # decides; phase 2 holds those right after the phase, outside the count.
     gens = {seed: torch.Generator(device="cuda").manual_seed(seed)
-            for seed in range(6, 15)}
+            for seed in range(6, 22)}
     no_late = lambda shape, k, masked: False  # noqa: E731
     paths = [
         ("3-rsvd-8192", None, no_late, lambda: phase_rsvd(torch, rt, gen)),
@@ -1030,6 +1358,21 @@ def main(argv) -> int:
          lambda: phase_nystrom(torch, rt, gens[13])),
         ("14-front-door", "qrcp_panel", no_late,
          lambda: phase_front_door(torch, rt, k1, gens[14])),
+        # the tol <= 1e-8 pipelines: f64 / c128, no kernel on their path
+        ("15-refined-rsvd-4096", None, no_late,
+         lambda: phase_refined_rsvd(torch, rt, gens[15])),
+        ("16-growth-512", None, no_late,
+         lambda: phase_growth(torch, rt, gens[16])),
+        ("17-batched-growth", None, no_late,
+         lambda: phase_batched_growth(torch, rt, gens[17])),
+        ("18-hilbert-column-id", None, no_late,
+         lambda: phase_hilbert_id(torch, rt, gens[18])),
+        ("19-two-sided-id-8192", None, no_late,
+         lambda: phase_two_sided_refined(torch, rt, gens[19])),
+        ("20-refined-c128-2048", None, no_late,
+         lambda: phase_refined_complex(torch, rt, gens[20])),
+        ("21-front-door-highacc", None, no_late,
+         lambda: phase_refined_front_door(torch, rt, gens[21])),
     ]
     launches = {name: 0 for name in KERNELS}
     for phase, must, late, drive in paths:

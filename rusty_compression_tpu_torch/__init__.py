@@ -5,7 +5,8 @@ H100, to a fixed rank or to a tolerance: randomized range finding (fixed,
 power-iterated, adaptive), generalized Nyström, pivoted QR, truncated SVD
 and one- and two-sided interpolative decompositions behind one
 ``compress`` front door, with the JAX package's module layout and public
-names.
+names; the tol <= 1e-8 pipelines (``highacc``, ``highacc_id``) run in
+native float64 / complex128.
 Plain tensor code is PyTorch; the fused pivoted-QR panels (K1 for f32, K2
 for c64) are CUDA kernels written for sm_90a (``ops/kernels/qrcp.py``,
 ``csrc/qrcp.cu``, ``csrc/qrcp_c64.cu``).
@@ -17,6 +18,10 @@ frozen dataclasses of tensors where it uses pytrees. This package imports
 """
 
 from .config import CompressionConfig, compress
+from .highacc import (refined_capture, refined_rsvd, refined_rsvd_fused,
+                      refined_rsvd_fused_batch, refined_rsvd_planar)
+from .highacc_id import (refined_column_id, refined_row_id,
+                         refined_two_sided_id)
 from .linop import (AdjointOperator, CompositeOperator, DenseOperator,
                     FactoredOperator, FunctionOperator, LinearOperator,
                     ScaledOperator, SparseOperator, SumOperator,
@@ -71,6 +76,10 @@ __all__ = [
     "nystrom_svd",
     "sketched_column_id", "sketched_row_id", "sketched_two_sided_id",
     "max_col_norm", "HMT_TOL_FACTOR",
+    # high-accuracy (tol <= 1e-8) pipelines, native f64/c128
+    "refined_capture", "refined_rsvd", "refined_rsvd_fused",
+    "refined_rsvd_fused_batch", "refined_rsvd_planar",
+    "refined_column_id", "refined_row_id", "refined_two_sided_id",
     # complex
     "planar_range_capture", "planar_rsvd", "planar_column_id",
     "planar_row_id", "planar_two_sided_id",

@@ -12,9 +12,9 @@ Not ported, and why:
   TPU rejects complex dtypes; the card takes them, so a complex target
   goes down the same paths as a real one (K2 picks its pivots on the
   card);
-* a list of heterogeneous blocks (the scheduler, ROADMAP Queue 1 item 7)
-  and ``highacc=True`` (the tol <= 1e-8 pipelines, item 5) are later
-  slices: ``compress`` refuses both by name.
+* a list of heterogeneous blocks (the scheduler, ROADMAP Queue 1 item 7),
+  also with ``highacc=True`` (``compress_heterogeneous_refined``), is a
+  later slice: ``compress`` refuses it by name.
 """
 
 from __future__ import annotations
@@ -130,15 +130,14 @@ def compress(target: Any, generator: torch.Generator,
     if c.precision is not None:
         common["precision"] = c.precision
 
-    if c.highacc:
-        raise NotImplementedError(
-            "highacc=True (the tol <= 1e-8 pipelines) is not ported yet "
-            "(ROADMAP Queue 1 item 5)")
     if isinstance(target, (list, tuple)):
         raise NotImplementedError(
             "a list of heterogeneous blocks goes through the scheduler, "
             "which is not ported yet (ROADMAP Queue 1 item 7); compress "
             "the blocks one by one or as same-shape (B, m, n) stacks")
+
+    if c.highacc:
+        return _compress_highacc(target, generator, c)
 
     if (c.rel_tol is not None and c.rel_tol < 1e-7
             and getattr(target, "dtype", None) in (torch.float32,
@@ -184,3 +183,27 @@ def compress(target: Any, generator: torch.Generator,
                  "sketched_two_sided_id": sketched_two_sided_id_block}
     return block_fns[c.method](target, generator, c.rank, mode=c.qr_mode,
                                block_size=c.block_size, **common)
+
+
+def _compress_highacc(target: Any, generator: torch.Generator,
+                      c: CompressionConfig):
+    """The tol <= 1e-8 pipeline (``highacc.refined_rsvd``, native f64/c128).
+
+    Dense targets only: its residual rounds need the matrix entries. One
+    matrix returns ``(RefinedSVD, history)``; a (B, m, n) stack returns a
+    list of ``RefinedSVD`` in order (``refined_rsvd_batch``).
+    ``c.oversample`` (the reference's p = 5) is not forwarded, as in the
+    JAX package: the refined pipeline keeps its own default (10).
+    """
+    from .highacc import refined_rsvd, refined_rsvd_batch
+
+    if hasattr(target, "matmat"):
+        raise ValueError(
+            "highacc needs dense matrix entries (its residual rounds form "
+            "A - U W from A itself); materialize the operator first")
+    rk = int(c.round_rank if c.round_rank is not None else c.rank)
+    if np.ndim(target) == 3:
+        return refined_rsvd_batch(list(target), generator, round_rank=rk,
+                                  tol=c.rel_tol)
+    out = refined_rsvd(target, generator, round_rank=rk, tol=c.rel_tol)
+    return out, out.history

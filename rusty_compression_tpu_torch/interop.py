@@ -1,11 +1,11 @@
 """Moving the JAX package's factors and operands into the port.
 
 ``from_numpy`` takes a factor container of the JAX package (``QR``,
-``LQ``, ``SVD``, ``ColumnID``, ``RowID``, ``TwoSidedID``) or an operand,
-reads each leaf with ``np.asarray``, and builds the port's container of
-the same name, or a ``DenseOperator``, on the chosen device, so that both
-packages compute on the same numbers. It matches containers by class and
-field names and imports nothing of JAX.
+``LQ``, ``SVD``, ``ColumnID``, ``RowID``, ``TwoSidedID``, ``RefinedSVD``)
+or an operand, reads each leaf with ``np.asarray``, and builds the port's
+container of the same name, or a ``DenseOperator``, on the chosen device,
+so that both packages compute on the same numbers. It matches containers
+by class and field names and imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .highacc import RefinedSVD
 from .linop import DenseOperator
 from .models.interp_decomp import ColumnID, RowID, TwoSidedID
 from .models.qr import LQ, QR
@@ -40,9 +41,17 @@ def from_numpy(obj, device="cuda"):
 
     ``obj`` is a factor container (anything whose class name is one of the
     port's containers and whose dataclass fields match), or an array,
-    which becomes a ``DenseOperator``.
+    which becomes a ``DenseOperator``. A ``RefinedSVD`` keeps its
+    ``u`` as the f64/c128 sum ``hi + lo`` of its double-float pair.
     """
     name = type(obj).__name__
+    if name == "RefinedSVD" and hasattr(obj, "_fields"):
+        hi, lo = np.asarray(obj.u.hi), np.asarray(obj.u.lo)
+        wide = np.complex128 if np.iscomplexobj(hi) else np.float64
+        return RefinedSVD(_tensor(hi.astype(wide) + lo.astype(wide), device),
+                          _tensor(obj.s, device), _tensor(obj.vt, device),
+                          tuple(obj.history), bool(obj.tol_ok),
+                          obj.opt_resid)
     if name in _CONTAINERS and dataclasses.is_dataclass(obj):
         cls = _CONTAINERS[name]
         return cls(**{f.name: _tensor(getattr(obj, f.name), device)

@@ -164,7 +164,7 @@ def test_pallas_is_refused_by_name(port):
                                        qr_mode="pallas")
 
 
-@pytest.mark.parametrize("what", ["list", "highacc", "mesh_rank",
+@pytest.mark.parametrize("what", ["list", "highacc_list", "mesh_rank",
                                   "mesh_adaptive"])
 def test_later_slices_are_refused_by_name(port, what):
     torch, rt = port.torch, port.rt
@@ -174,8 +174,9 @@ def test_later_slices_are_refused_by_name(port, what):
         rt.CompressionConfig.ADAPTIVE(1e-3)
     call, item = {
         "list": (lambda: rt.compress([a, a[:40, :30]], g, rank), "item 7"),
-        "highacc": (lambda: rt.compress(a, g, rt.CompressionConfig.ADAPTIVE(
-            1e-8, highacc=True, round_rank=16)), "item 5"),
+        "highacc_list": (lambda: rt.compress(
+            [a, a[:40, :30]], g, rt.CompressionConfig.ADAPTIVE(
+                1e-8, highacc=True, round_rank=16)), "item 7"),
         "mesh_rank": (lambda: rt.compress(torch.stack([a, a]), g, rank,
                                           mesh=object()), "item 7"),
         "mesh_adaptive": (lambda: rt.compress(torch.stack([a, a]), g,
@@ -318,10 +319,6 @@ def test_exported_names_against_the_jax_package(port):
     from rusty_compression_tpu_torch import parallel
 
     still_to_port = {
-        # the tol <= 1e-8 pipelines in native f64 (ROADMAP Queue 1 item 5)
-        "refined_capture", "refined_rsvd", "refined_rsvd_fused",
-        "refined_rsvd_fused_batch", "refined_rsvd_planar",
-        "refined_column_id", "refined_row_id", "refined_two_sided_id",
         # persistence, the native loader, logging and profiling helpers
         # (item 7)
         "io", "native", "MetricsLogger", "sync", "timeit_slope", "trace",
@@ -375,3 +372,57 @@ def test_hilbert_column_id_and_the_pivot_shortlist(port, candidates, within):
     assert verdict(want, float(rc.rel_diff_fro(want.to_mat(), jh))) == within
     cols = h[:, got.col_ind[:got.rank]]
     assert float((got.c - cols).abs().max()) <= 1e-12  # columns stay exact
+
+
+def highacc_fixture(seed, shape=(96, 80), decay_rank=40):
+    """sigma_i = 10^(-10 i / (decay_rank - 1)): crosses 1e-8 at i = 32."""
+    rng = np.random.default_rng(seed)
+    k = min(shape)
+    u, _ = np.linalg.qr(rng.standard_normal((shape[0], k)))
+    v, _ = np.linalg.qr(rng.standard_normal((shape[1], k)))
+    return (u * 10.0 ** (-10 * np.arange(k) / (decay_rank - 1))) @ v.T
+
+
+@pytest.mark.parametrize("target", ["matrix", "numpy", "stack"])
+def test_compress_highacc_equals_the_direct_call(port, target):
+    """``compress(highacc=True)`` is bitwise the direct ``refined_rsvd``
+    (``refined_rsvd_batch`` for a stack) with a generator in the same
+    state; ``c.oversample`` is not forwarded, as in the JAX package."""
+    torch, rt = port.torch, port.rt
+    from rusty_compression_tpu_torch.highacc import refined_rsvd_batch
+
+    if target == "stack":
+        a = t(np.stack([highacc_fixture(140 + i) for i in range(2)]))
+    else:
+        a = highacc_fixture(140)
+        a = a if target == "numpy" else t(a)
+    cfg = rt.CompressionConfig.ADAPTIVE(1e-8, highacc=True, round_rank=42,
+                                        oversample=3)
+
+    def gen():
+        return torch.Generator().manual_seed(11)
+
+    got = rt.compress(a, gen(), cfg)
+    if target == "stack":
+        want = refined_rsvd_batch(list(a), gen(), round_rank=42, tol=1e-8)
+        assert isinstance(got, list) and len(got) == 2
+    else:
+        got, history = got
+        assert history == got.history
+        want = [rt.refined_rsvd(a, gen(), round_rank=42, tol=1e-8)]
+        got = [got]
+    for g_, w in zip(got, want):
+        assert type(g_).__name__ == "RefinedSVD" and g_.tol_ok
+        for name in ("u", "s", "vt"):
+            assert torch.equal(getattr(g_, name), getattr(w, name)), name
+        assert abs(g_.rank - 32) <= 2
+    ref = np.asarray(a)[0] if target == "stack" else np.asarray(a)
+    assert got[0].residual_fro(ref) < 5e-8
+
+
+def test_compress_highacc_refuses_an_operator(port):
+    rt = port.rt
+    a = t(highacc_fixture(141))
+    cfg = rt.CompressionConfig.ADAPTIVE(1e-8, highacc=True, round_rank=42)
+    with pytest.raises(ValueError, match="dense matrix entries"):
+        rt.compress(rt.DenseOperator(a), port.torch.Generator(), cfg)

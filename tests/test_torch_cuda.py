@@ -1,5 +1,5 @@
 """K1 and K2 on the card: the CUDA kernels against their plain version, and
-the routes that launch them.
+the routes that launch them; and the tol <= 1e-8 pipelines in f64/c128.
 
 These tests need an NVIDIA card (marker ``cuda``) and skip without one.
 This file imports neither JAX nor the JAX package, so that on a machine
@@ -450,3 +450,116 @@ def test_compress_of_a_c64_block_goes_through_k2(k1):
     svd, hist = rt.compress(a, g, rt.CompressionConfig.ADAPTIVE(
         1e-3, sample_size=8))
     assert float(rt.rel_diff_fro(svd.to_mat(), a)) < 5e-3
+
+
+# ---------------------------------------------------------------------------
+# The tol <= 1e-8 pipelines (highacc, highacc_id) in f64 / c128 on the card
+# ---------------------------------------------------------------------------
+
+
+def _decaying(seed, m, n, decay_rank=60, complex_=False):
+    """sigma_i = 10^(-10 i / (decay_rank - 1)), floor 1e-12: crosses 1e-8 at
+    i = 0.8 (decay_rank - 1)."""
+    rng = np.random.default_rng(seed)
+    k = min(m, n)
+    sig = np.maximum(10.0 ** (-10 * np.arange(k) / (decay_rank - 1)), 1e-12)
+
+    def basis(rows):
+        g = rng.standard_normal((rows, k))
+        if complex_:
+            g = g + 1j * rng.standard_normal((rows, k))
+        return np.linalg.qr(g)[0]
+
+    return (basis(m) * sig) @ basis(n).conj().T
+
+
+@pytest.mark.parametrize("complex_", [False, True])
+@pytest.mark.parametrize("mode", ["fixed", "growth"])
+def test_refined_rsvd_rank_on_the_card_equals_the_cpu(k1, complex_, mode):
+    import torch
+
+    import rusty_compression_tpu_torch as rt
+
+    a = _decaying(70, 384, 320, complex_=complex_)
+    kwargs = dict(round_rank=66) if mode == "fixed" else {}
+    outs = {dev: rt.refined_rsvd(torch.tensor(a, device=dev),
+                                 torch.Generator(device=dev).manual_seed(1),
+                                 tol=1e-8, **kwargs)
+            for dev in ("cpu", "cuda")}
+    torch.cuda.synchronize()
+    assert outs["cuda"].u.device.type == "cuda"
+    assert outs["cuda"].rank == outs["cpu"].rank
+    for out in outs.values():
+        assert out.residual_fro(a) <= 5e-8
+    np.testing.assert_allclose(outs["cuda"].s.cpu().numpy(),
+                               outs["cpu"].s.numpy(), rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("side", ["col", "row"])
+def test_refined_two_sided_id_on_the_card(k1, side):
+    """Skeleton bitwise A's entries; the core's pivots up to the rank equal
+    LAPACK ``?geqp3``'s (scipy) on the same core copied to the host."""
+    import scipy.linalg
+    import torch
+
+    import rusty_compression_tpu_torch as rt
+    from rusty_compression_tpu_torch.highacc_id import (_core_qrcp,
+                                                        _truncation_rank)
+
+    a = torch.tensor(_decaying(71, 512, 448), device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    ts = rt.refined_two_sided_id(a, g, tol=1e-8, side=side)
+    torch.cuda.synchronize()
+    k = ts.rank
+    assert torch.equal(ts.x, a[ts.row_ind[:k][:, None], ts.col_ind[:k]])
+    rec = ts.c @ ts.x @ ts.r
+    assert float(torch.linalg.norm(rec - a) / torch.linalg.norm(a)) <= 1e-7
+    _, b, _, captured = rt.refined_capture(a, g, tol=1e-8)
+    rb, ind = _core_qrcp(b)
+    kf = _truncation_rank(torch.diagonal(rb), 1e-8, None, captured)
+    _, _, piv = scipy.linalg.qr(b.cpu().numpy(), mode="economic",
+                                pivoting=True)
+    np.testing.assert_array_equal(ind.cpu().numpy()[:kf], piv[:kf])
+
+
+def test_compress_highacc_on_the_card_is_the_direct_call(k1):
+    import torch
+
+    import rusty_compression_tpu_torch as rt
+    from rusty_compression_tpu_torch.highacc import refined_rsvd_batch
+
+    stack = torch.tensor(np.stack([_decaying(72 + i, 256, 256, 30 + 10 * i)
+                                   for i in range(3)]), device="cuda")
+    cfg = rt.CompressionConfig.ADAPTIVE(1e-8, highacc=True, round_rank=56)
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(3)
+
+    got, _ = rt.compress(stack[1], gen(), cfg)
+    want = rt.refined_rsvd(stack[1], gen(), round_rank=56, tol=1e-8)
+    pairs = [(got, want)] + list(zip(
+        rt.compress(stack, gen(), cfg),
+        refined_rsvd_batch(list(stack), gen(), round_rank=56, tol=1e-8)))
+    for got, want in pairs:
+        for name in ("u", "s", "vt"):
+            assert torch.equal(getattr(got, name), getattr(want, name))
+
+
+def test_batched_growth_and_marking_on_the_card(k1):
+    import torch
+
+    import rusty_compression_tpu_torch as rt
+
+    blocks = np.stack([_decaying(80 + i, 256, 256, 30 + 10 * i)
+                       for i in range(4)])
+    stack = torch.tensor(blocks, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    outs = rt.refined_rsvd_fused_batch(stack, g, tol=1e-8)
+    for o, b, dk in zip(outs, blocks, (30, 40, 50, 60)):
+        assert o.tol_ok and abs(o.rank - round(0.8 * (dk - 1))) <= 3
+        assert o.residual_fro(b) <= 5e-8
+    stack[0] = torch.randn((256, 256), generator=g, device="cuda",
+                           dtype=torch.float64)
+    outs = rt.refined_rsvd_fused_batch(stack, g, round_rank=56, tol=1e-8,
+                                       on_unreachable="mark")
+    assert [o.tol_ok for o in outs] == [False, True, True, True]
