@@ -1,6 +1,6 @@
 """Drive the PyTorch port's main paths once on one NVIDIA card and check them.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--volume N]
 
 Phases (each ends with ``torch.cuda.synchronize()``; any failed check
 raises, and the script exits non-zero without its result line):
@@ -100,8 +100,27 @@ raises, and the script exits non-zero without its result line):
     (decay 60, 96 terms), ``refined_rsvd`` and ``refined_rsvd_planar``.
     21 ``compress(ADAPTIVE(1e-8, highacc=True, round_rank=k))`` of phase
     15's block and phase 17's stack, bitwise the direct calls.
+22. The block stream (BASELINE config 5's shapes on one card): 64 f32
+    Laplace blocks (the clouds of ``tools/_gen_blocks10k.py``), sides from
+    ``default_rng(22).integers(1024, 8193)``, made on the card and handed
+    over as host numpy arrays, through ``compress_heterogeneous`` at rank
+    16 (``sketched_two_sided_id``, then ``rsvd``) and at rel_tol 1e-3:
+    every block in submission order, ``on_result`` in collection order,
+    the bucket the next power of two >= 128, rel err <= 5e-3 (tolerance
+    mode: ranks a multiple of 16), the ID's pivots inside each block and
+    its skeleton within 1e-3 of A[row_ind[:16], col_ind[:16]], the
+    C++ plan equal to ``plan_buckets``', ``compress(list)`` bitwise the
+    direct stream; blocks/s, GB/s, chunks, peak device memory, K1 launches.
+23. The 1,024-block volume (``BASELINE.md:201``; ``--volume N`` for N): f64
+    Laplace blocks with sides from ``default_rng(5).integers(64, 513)``,
+    written as ``.npy`` files, through ``cli.main([dir, "-o", ckpt, "--tol",
+    "1e-8", "--highacc", "--metrics", ...])``: every block without an
+    error (at max(5e-8, 1.5 opt)), three blocks' stored factors giving
+    their recorded residual, at most 2 % of the blocks on a fallback; then
+    the manifest's last 100 rows deleted and ``--resume``: exactly those
+    100 blocks re-run, ``load_block_results`` one row per block.
 
-Both launch counts are set to 0 just before each of phases 3-21 and read
+Both launch counts are set to 0 just before each of phases 3-23 and read
 just after it; a kernel that a phase's path must run and that it launched
 no time fails the run. Every panel shape that a phase launched has to be
 one that phase 2 held against the plain version; a shape whose size
@@ -117,14 +136,16 @@ a column-pivoted QR (``torch.linalg.qr`` does not pivot), so
 ``library_ms`` is null for both kernels.
 
 ``--profile`` also runs ``torch.profiler`` over six warm calls of each of
-phases 3-21 and prints, per phase, the wall time per call with the tracing
-on, the device-busy time, the idle share and the device time by kernel
-name.
+phases 3-21 (three of the ID stream of 22 and of a 128-block refined
+stream of 23) and prints, per phase, the wall time per call with the
+tracing on, the device-busy time, the idle share and the device time by
+kernel name.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import math
 import statistics
 import subprocess
@@ -1269,6 +1290,273 @@ def phase_refined_front_door(torch, rt, gen):
     return lambda: [run() for run in runs]
 
 
+# ---------------------------------------------------------------------------
+# Phases 22-23: the heterogeneous block stream, checkpoints and the CLI
+# ---------------------------------------------------------------------------
+
+
+def stream_blocks(torch, gen, sides, dtype):
+    """Admissible Laplace blocks of the given (m, n) sides, made on the card
+    and handed over as host numpy arrays; the clouds of
+    ``tools/_gen_blocks10k.py``: unit cubes, the sources' centred at
+    (3 + 0.5 (i % 5), 0.5 (i % 3), 0)."""
+    from rusty_compression_tpu_torch.utils.kernel_matrices import (
+        laplace_kernel_block, random_cloud)
+
+    blocks = []
+    for i, (m, n) in enumerate(sides):
+        x = random_cloud(gen, int(m), (0.0, 0.0, 0.0))
+        y = random_cloud(gen, int(n), (3.0 + 0.5 * (i % 5), 0.5 * (i % 3),
+                                       0.0))
+        blocks.append(laplace_kernel_block(x, y, dtype=dtype).cpu().numpy())
+    return blocks
+
+
+def stream_line(results, blocks, seconds) -> dict:
+    nbytes = sum(b.nbytes for b in blocks)
+    errs = sorted(r.rel_residual for r in results)
+    return {"blocks": len(results), "gbytes": nbytes / 1e9,
+            "seconds": seconds, "blocks_per_s": len(results) / seconds,
+            "gbps": nbytes / seconds / 1e9, "rel_err_max": errs[-1],
+            "ranks": [min(r.rank for r in results),
+                      max(r.rank for r in results)]}
+
+
+def phase_block_stream(torch, rt, k1, gen, count: int = 64):
+    """Config 5's shapes on one card: ``count`` f32 Laplace blocks with
+    sides from ``default_rng(22).integers(1024, 8193)``, through
+    ``compress_heterogeneous`` at rank 16 (one-read ID and rSVD) and at
+    rel_tol 1e-3; then ``compress(list)`` against the direct call."""
+    import numpy as np
+
+    from rusty_compression_tpu_torch import native
+    from rusty_compression_tpu_torch.parallel import (
+        bucket_dim, compress_heterogeneous, plan_buckets)
+    from rusty_compression_tpu_torch.parallel.scheduler import _chunks
+
+    sides = np.random.default_rng(22).integers(1024, 8193, (count, 2))
+    blocks = stream_blocks(torch, gen, sides, torch.float32)
+    shapes = [b.shape for b in blocks]
+    groups = plan_buckets(shapes)
+    nplan = native.plan(shapes)
+    check(nplan is None or nplan.groups() == groups,
+          "the C++ plan differs from plan_buckets")
+    chunks = len(_chunks(blocks, shapes, groups, 1, 1 << 30, False))
+    calls = {
+        "sketched_two_sided_id": dict(rank=16,
+                                      method="sketched_two_sided_id"),
+        "rsvd": dict(rank=16, method="rsvd"),
+        "adaptive": dict(rel_tol=1e-3, sample_size=16)}
+    runs = []
+    for name, kwargs in calls.items():
+        seen, skel = [], None
+        torch.cuda.reset_peak_memory_stats()
+        before = k1.qrcp_panel.launch_count
+        t0 = time.perf_counter()
+        res = compress_heterogeneous(blocks, gen, on_result=seen.append,
+                                     **kwargs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = k1.qrcp_panel.launch_count - before
+        check([r.index for r in res] == list(range(count))
+              and [r.index for r in seen] == sorted(
+                  range(count), key=lambda i: (res[i].bucket, i)),
+              f"{name}: results out of order")
+        check(all(r.bucket == (bucket_dim(m), bucket_dim(n))
+                  and r.shape == (m, n) for r, (m, n) in zip(res, shapes)),
+              f"{name}: wrong buckets")
+        worst = max(r.rel_residual for r in res)
+        if name == "adaptive":
+            check(worst <= 5e-3 and all(r.rank % 16 == 0 for r in res),
+                  f"adaptive stream: rel err {worst}, ranks "
+                  f"{sorted({r.rank for r in res})}")
+        else:
+            check(worst <= 5e-3, f"{name} stream rel err {worst} > 5e-3")
+        if name == "sketched_two_sided_id":
+            check(launches > 0, "the ID stream launched no K1")
+            # the padding is never chosen; X is the skeleton of the block
+            skel = 0.0
+            for r, b in zip(res, blocks):
+                rows = r.factors.row_ind[:16].numpy()
+                cols = r.factors.col_ind[:16].numpy()
+                check(rows.max() < b.shape[0] and cols.max() < b.shape[1],
+                      f"block {r.index}: a pivot in the padding")
+                sub = b[rows[:, None], cols]
+                skel = max(skel, float(np.abs(r.factors.x.numpy() - sub).max()
+                                       / np.abs(sub).max()))
+            check(skel <= 1e-3, f"skeleton rel err {skel} > 1e-3")
+            cfg = rt.CompressionConfig.RANK(16, method=name)
+            twin = same_state(gen)
+            got = rt.compress(blocks, gen, cfg)
+            want = compress_heterogeneous(
+                blocks, twin, rank=16, method=name, mode=cfg.qr_mode,
+                block_size=cfg.block_size)
+            check(all(torch.equal(getattr(x.factors, f), getattr(
+                y.factors, f)) for x, y in zip(got, want)
+                for f in ("c", "x", "r", "row_ind", "col_ind")),
+                "compress(list) is not the direct stream")
+        say("22-block-stream-f32", call=name,
+            skeleton_rel_err=skel,
+            **stream_line(res, blocks, seconds), chunks=chunks,
+            buckets=len(groups), plan="native" if nplan else "python",
+            k1_launches=launches,
+            max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+        runs.append(lambda kw=kwargs: compress_heterogeneous(blocks, gen,
+                                                             **kw))
+    run = lambda: runs[0]()  # noqa: E731
+    run.chunks = chunks  # for the profile's kernels per chunk
+    return run
+
+
+def volume_sides(count: int):
+    """Sides of the volume stream: ``default_rng(5).integers(64, 513)``,
+    m then n for each block, as ``tools/_gen_blocks10k.py`` draws them."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    return [(int(rng.integers(64, 513)), int(rng.integers(64, 513)))
+            for _ in range(count)]
+
+
+class FallbackTally(logging.Handler):
+    """Sums the fallback counts that each refined stream logs (the
+    ``fallbacks`` of the scheduler's record), while it is entered."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.counts: dict = {}
+        self.streams = 0
+
+    def emit(self, record):
+        if hasattr(record, "fallbacks"):
+            self.streams += 1
+            for key, value in record.fallbacks.items():
+                self.counts[key] = self.counts.get(key, 0) + value
+
+    def __enter__(self):
+        self.logger = logging.getLogger("rusty_compression_tpu_torch.scheduler")
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+        self.logger.setLevel(self.level)
+
+
+def phase_volume(torch, rt, gen, count: int):
+    """``count`` f64 Laplace blocks (sides 64-512) as ``.npy`` files through
+    ``cli.main(--tol 1e-8 --highacc)``; the last 100 manifest rows deleted
+    and the stream resumed."""
+    import contextlib
+    import io as stdio
+    import json as _json
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from rusty_compression_tpu_torch import cli
+    from rusty_compression_tpu_torch import highacc as ha
+    from rusty_compression_tpu_torch import io as rcio
+    from rusty_compression_tpu_torch.parallel import scheduler
+
+    work = tempfile.mkdtemp(prefix="rc_volume_")
+    try:
+        need = sum(m * n * 8 for m, n in volume_sides(count)) * 3
+        free = shutil.disk_usage(work).free
+        check(free > need, f"{free / 1e9:.1f} GB free for {count} blocks, "
+              f"{need / 1e9:.1f} GB needed")
+        src, ckpt = os.path.join(work, "blocks"), os.path.join(work, "ckpt")
+        os.makedirs(src)
+        sides = volume_sides(count)
+        for lo in range(0, count, 256):
+            part = stream_blocks(torch, gen, sides[lo:lo + 256],
+                                 torch.float64)
+            for i, b in enumerate(part, lo):
+                np.save(os.path.join(src, f"block_{i:05d}.npy"), b)
+        metrics = os.path.join(work, "metrics.jsonl")
+
+        def run(*extra):
+            out = stdio.StringIO()
+            reads = ha._read.count
+            tally = FallbackTally()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out), tally:
+                rc = cli.main([src, "-o", ckpt, "--tol", "1e-8",
+                               "--highacc", "--metrics", metrics, *extra])
+            torch.cuda.synchronize()
+            check(rc == 0, f"cli.main returned {rc}")
+            check(tally.streams == 1, f"{tally.streams} refined streams ran")
+            return (time.perf_counter() - t0, out.getvalue(), tally.counts,
+                    ha._read.count - reads)
+
+        seconds, printed, fallbacks, reads = run()
+        manifest = os.path.join(ckpt, "manifest.jsonl")
+        with open(manifest) as f:
+            rows = [_json.loads(line) for line in f]
+        check(len(rows) == count and sorted(r["block"] for r in rows)
+              == list(range(count)), "the manifest does not hold each block")
+        failed = [r for r in rows if r["error"]]
+        check(not failed, f"{len(failed)} blocks failed: {failed[:2]}")
+        check(fallbacks["blocks"] <= 0.02 * count,
+              f"{fallbacks['blocks']} of {count} blocks took a fallback")
+        errs = np.sort([r["rel_residual"] for r in rows])
+        ranks = [r["rank"] for r in rows]
+        pick = np.random.default_rng(23).choice(count, 3, replace=False)
+        for i in pick:
+            a = np.load(os.path.join(src, f"block_{i:05d}.npy"))
+            f = rcio.load_factors(os.path.join(ckpt, f"block_{i:08d}.npz"),
+                                  device="cuda")
+            rec = (f.u @ (f.s[:, None] * f.vt)).cpu().numpy()
+            err = float(np.linalg.norm(rec - a) / np.linalg.norm(a))
+            want = next(r["rel_residual"] for r in rows if r["block"] == i)
+            check(abs(err - want) <= 1e-6 * want + 1e-15,
+                  f"block {i}: stored factors give {err}, recorded {want}")
+
+        # resume: the last 100 rows deleted, exactly those blocks re-run
+        dropped = sorted(r["block"] for r in rows[-100:])
+        with open(manifest, "w") as f:
+            f.writelines(_json.dumps(r) + "\n" for r in rows[:-100])
+        check(rcio.pending_blocks(ckpt, count) == dropped,
+              "pending_blocks is not the deleted rows")
+        r_seconds, r_printed, r_fallbacks, r_reads = run("--resume")
+        check(f"resuming: 100/{count} blocks pending" in r_printed,
+              f"resume printed {r_printed.splitlines()[:1]}")
+        with open(manifest) as f:
+            after = [_json.loads(line) for line in f]
+        check(sorted(r["block"] for r in after[count - 100:]) == dropped
+              and len(after) == count, "the resume re-ran other blocks")
+        loaded = rcio.load_block_results(ckpt, device="cuda")
+        check([r["block"] for r in loaded] == list(range(count)),
+              "load_block_results does not give each block once")
+        say("23-volume-1e-8", blocks=count,
+            gbytes=sum(m * n * 8 for m, n in sides) / 1e9,
+            seconds=seconds, blocks_per_s=count / seconds,
+            resumed_blocks=100, resumed_seconds=r_seconds,
+            resumed_blocks_per_s=100 / r_seconds,
+            rel_err_max=float(errs[-1]),
+            rel_err_median=float(np.median(errs)),
+            rel_err_p99=float(np.quantile(errs, 0.99)),
+            ranks=[min(ranks), max(ranks)], fallbacks=fallbacks,
+            resume_fallbacks=r_fallbacks, host_reads=reads,
+            resume_host_reads=r_reads, checked_blocks=pick.tolist(),
+            summary=printed.strip().splitlines()[-2:])
+        head = [np.load(os.path.join(src, f"block_{i:05d}.npy"))
+                for i in range(min(count, 128))]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    run = lambda: scheduler.compress_heterogeneous_refined(  # noqa: E731
+        head, gen, rel_tol=1e-8)
+    shapes = [b.shape for b in head]
+    run.chunks = len(scheduler._chunks(head, shapes,
+                                       scheduler.plan_buckets(shapes), 1,
+                                       256 << 20, True))
+    return run
+
+
 def profile(torch, name: str, run, calls: int = 5) -> None:
     """Device-busy time, idle share and device time by kernel name over
     ``calls`` warm calls of ``run`` (torch.profiler). The wall time is taken
@@ -1294,9 +1582,13 @@ def profile(torch, name: str, run, calls: int = 5) -> None:
     check(bool(rows), f"profile of {name}: no device time recorded")
     rows.sort(key=lambda row: -row[1])
     busy = sum(row[1] for row in rows)
+    per_chunk = {}
+    if getattr(run, "chunks", None):
+        per_chunk = {"chunks_per_call": run.chunks, "kernels_per_chunk": sum(
+            row[2] for row in rows) / run.chunks}
     say("profile", cell=name, wall_ms_per_call=wall, device_busy_ms=busy,
         idle_share=1 - busy / wall,
-        kernels_per_call=sum(row[2] for row in rows),
+        kernels_per_call=sum(row[2] for row in rows), **per_chunk,
         top=[{"kernel": key[:60], "ms": ms, "per_call": cnt}
              for key, ms, cnt in rows[:6]])
 
@@ -1324,7 +1616,9 @@ def main(argv) -> int:
     # `late` says which of a phase's K1 shapes have a size that its data
     # decides; phase 2 holds those right after the phase, outside the count.
     gens = {seed: torch.Generator(device="cuda").manual_seed(seed)
-            for seed in range(6, 22)}
+            for seed in range(6, 24)}
+    volume = int(argv[argv.index("--volume") + 1]) if "--volume" in argv \
+        else 1024
     no_late = lambda shape, k, masked: False  # noqa: E731
     paths = [
         ("3-rsvd-8192", None, no_late, lambda: phase_rsvd(torch, rt, gen)),
@@ -1373,6 +1667,14 @@ def main(argv) -> int:
          lambda: phase_refined_complex(torch, rt, gens[20])),
         ("21-front-door-highacc", None, no_late,
          lambda: phase_refined_front_door(torch, rt, gens[21])),
+        # the stream's K1 panels: (chunk, 24 or 16, bucket side), k = 16
+        ("22-block-stream-f32", "qrcp_panel",
+         lambda shape, k, masked: (not masked and k == 16
+                                   and shape[1] in (16, 24)
+                                   and shape[2] in (1024, 2048, 4096, 8192)),
+         lambda: phase_block_stream(torch, rt, k1, gens[22])),
+        ("23-volume-1e-8", None, no_late,
+         lambda: phase_volume(torch, rt, gens[23], volume)),
     ]
     launches = {name: 0 for name in KERNELS}
     for phase, must, late, drive in paths:
@@ -1392,7 +1694,8 @@ def main(argv) -> int:
             launches[name] += counts[name]
             checks.hold_launched(name, late)
         if "--profile" in argv:
-            profile(torch, phase, run)
+            profile(torch, phase, run,
+                    calls=2 if phase.startswith(("22", "23")) else 5)
         del run
         torch.cuda.empty_cache()
     kernels = checks.summary()

@@ -9,7 +9,9 @@ names; the tol <= 1e-8 pipelines (``highacc``, ``highacc_id``) run in
 native float64 / complex128.
 Plain tensor code is PyTorch; the fused pivoted-QR panels (K1 for f32, K2
 for c64) are CUDA kernels written for sm_90a (``ops/kernels/qrcp.py``,
-``csrc/qrcp.cu``, ``csrc/qrcp_c64.cu``).
+``csrc/qrcp.cu``, ``csrc/qrcp_c64.cu``). Heterogeneous block streams go
+through ``parallel.scheduler`` (also ``python -m rusty_compression_tpu_torch``)
+and their checkpoints through ``io``.
 
 Differences of idiom from the JAX package: explicit ``torch.Generator``
 where it takes a ``key``; a leading batch axis where it uses ``vmap``;
@@ -17,6 +19,7 @@ frozen dataclasses of tensors where it uses pytrees. This package imports
 ``torch`` and never ``jax``.
 """
 
+from . import io, native
 from .config import CompressionConfig, compress
 from .highacc import (refined_capture, refined_rsvd, refined_rsvd_fused,
                       refined_rsvd_fused_batch, refined_rsvd_planar)
@@ -44,12 +47,14 @@ from .sampling import (HMT_TOL_FACTOR, adaptive_range_finder, max_col_norm,
                        sketched_row_id, sketched_two_sided_id)
 from .utils.errors import (CompressionError, LayoutError, LinalgError,
                            PivotedQRError, RustyCompressionError)
+from .utils.logging import MetricsLogger
 from .utils.metrics import rel_diff_fro, rel_diff_l2
 from .utils.permutation import (MatrixPermutationMode, VectorPermutationMode,
                                 apply_matrix_permutation,
                                 apply_vector_permutation,
                                 invert_permutation_vector)
 from .utils.precision import default_precision, matmul_precision
+from .utils.profiling import sync, timeit_slope, trace
 from .utils.random_matrix import (random_approximate_low_rank_matrix,
                                   random_gaussian, random_orthogonal_matrix)
 
@@ -94,4 +99,6 @@ __all__ = [
     # errors
     "RustyCompressionError", "CompressionError", "LinalgError",
     "LayoutError", "PivotedQRError",
+    # persistence, the host planner, metrics and profiling
+    "io", "native", "MetricsLogger", "sync", "timeit_slope", "trace",
 ]

@@ -3,18 +3,14 @@
 
 Every knob of the pipelines is an explicit field of ``CompressionConfig``
 with the reference's default; ``compress`` routes a dense matrix, an
-operator or a (B, m, n) stack to the pipeline of the requested method in
-rank or tolerance mode.
+operator, a (B, m, n) stack or a list of heterogeneous blocks to the
+pipeline of the requested method in rank or tolerance mode.
 
-Not ported, and why:
-
-* ``_compress_planar*`` and ``use_host_complex``: they exist because the
-  TPU rejects complex dtypes; the card takes them, so a complex target
-  goes down the same paths as a real one (K2 picks its pivots on the
-  card);
-* a list of heterogeneous blocks (the scheduler, ROADMAP Queue 1 item 7),
-  also with ``highacc=True`` (``compress_heterogeneous_refined``), is a
-  later slice: ``compress`` refuses it by name.
+Not ported, and why: ``_compress_planar``, ``_compress_planar_list`` and
+``use_host_complex``. They exist because the TPU rejects complex dtypes;
+the card takes them, so a complex target goes down the same paths as a
+real one (K2 picks the pivots of a c64 ID on the card, and a complex list
+takes the block stream).
 """
 
 from __future__ import annotations
@@ -107,10 +103,12 @@ def compress(target: Any, generator: torch.Generator,
     """Compress ``target`` according to ``config``.
 
     ``target`` is a dense (m, n) matrix or a ``LinearOperator`` (one
-    compression) or a (B, m, n) stack (batched). Returns what the JAX
+    compression), a (B, m, n) stack (batched) or a list of blocks of any
+    shapes (the block stream, ``parallel.scheduler``). Returns what the JAX
     package's ``compress`` returns: the method's container; in tolerance
     mode ``(svd, history)`` for one target, with the SVD sliced to the
-    achieved rank, and ``(svd_padded, ranks, histories)`` for a stack.
+    achieved rank, and ``(svd_padded, ranks, histories)`` for a stack; a
+    list of ``BlockResult`` in submission order for a list.
     ``generator`` draws every Gaussian matrix and lives on the target's
     device; a numpy or ``scipy.sparse`` target is put on the generator's
     device.
@@ -130,14 +128,30 @@ def compress(target: Any, generator: torch.Generator,
     if c.precision is not None:
         common["precision"] = c.precision
 
-    if isinstance(target, (list, tuple)):
-        raise NotImplementedError(
-            "a list of heterogeneous blocks goes through the scheduler, "
-            "which is not ported yet (ROADMAP Queue 1 item 7); compress "
-            "the blocks one by one or as same-shape (B, m, n) stacks")
-
     if c.highacc:
         return _compress_highacc(target, generator, c)
+
+    if isinstance(target, (list, tuple)):
+        from .parallel.scheduler import compress_heterogeneous
+
+        kwargs = dict(method=c.method, mesh=mesh,
+                      bucket_floor=c.bucket_floor, **common)
+        if c.rel_tol is not None:
+            kwargs.update(rel_tol=c.rel_tol, sample_size=c.sample_size,
+                          max_rank=c.max_rank, ortho=c.ortho,
+                          small_svd=c.small_svd)
+        else:
+            kwargs.update(rank=c.rank)
+            if c.method == "rsvd":
+                kwargs.update(oversample=c.oversample,
+                              power_iters=c.power_iters, ortho=c.ortho,
+                              small_svd=c.small_svd)
+            elif c.method == "nystrom":
+                kwargs.update(oversample=c.oversample,
+                              small_svd=c.small_svd)
+            else:
+                kwargs.update(mode=c.qr_mode, block_size=c.block_size)
+        return compress_heterogeneous(target, generator, **kwargs)
 
     if (c.rel_tol is not None and c.rel_tol < 1e-7
             and getattr(target, "dtype", None) in (torch.float32,
@@ -169,9 +183,10 @@ def compress(target: Any, generator: torch.Generator,
 
     # one matrix or operator
     if c.rel_tol is not None:
-        return _adaptive_rsvd_sliced(
+        svd, _, history = _adaptive_rsvd_sliced(
             target, generator, c.rel_tol, c.sample_size, c.max_rank,
             ortho=c.ortho, small_svd=c.small_svd, **common)
+        return svd, history
     if c.method == "rsvd":
         return rsvd_block(target, generator, c.rank, c.oversample,
                           c.power_iters, c.ortho, c.small_svd, **common)
@@ -191,17 +206,24 @@ def _compress_highacc(target: Any, generator: torch.Generator,
 
     Dense targets only: its residual rounds need the matrix entries. One
     matrix returns ``(RefinedSVD, history)``; a (B, m, n) stack returns a
-    list of ``RefinedSVD`` in order (``refined_rsvd_batch``).
+    list of ``RefinedSVD`` in order (``refined_rsvd_batch``); a list of
+    blocks goes through ``compress_heterogeneous_refined`` and returns
+    ``BlockResult``s.
     ``c.oversample`` (the reference's p = 5) is not forwarded, as in the
     JAX package: the refined pipeline keeps its own default (10).
     """
     from .highacc import refined_rsvd, refined_rsvd_batch
+    from .parallel.scheduler import compress_heterogeneous_refined
 
+    rk = int(c.round_rank if c.round_rank is not None else c.rank)
+    if isinstance(target, (list, tuple)):
+        return compress_heterogeneous_refined(
+            target, generator, rel_tol=c.rel_tol, round_rank=rk,
+            bucket_floor=c.bucket_floor)
     if hasattr(target, "matmat"):
         raise ValueError(
             "highacc needs dense matrix entries (its residual rounds form "
             "A - U W from A itself); materialize the operator first")
-    rk = int(c.round_rank if c.round_rank is not None else c.rank)
     if np.ndim(target) == 3:
         return refined_rsvd_batch(list(target), generator, round_rank=rk,
                                   tol=c.rel_tol)

@@ -310,12 +310,19 @@ def _cut(s: np.ndarray, tol, rank, captured: bool) -> tuple:
 
 def _core_svd(b: torch.Tensor):
     """Economy SVD ``(uh, s, vh)`` of the wide (..., L, n) core, L <= n,
-    through its QR ``b^H = Q_t R_t``: cuSOLVER's SVD of the (L, L) factor
+    through its QR ``b^H = Q_t R_t``: the SVD of the (L, L) factor
     ``R_t^H``, then ``vh = W^H Q_t^H``. The SVD of the (L, n) core itself
     is a Jacobi sweep over n-long columns (tens of ms at 284 x 4096 on
-    the card, ``chip_smoke.py`` phase 15)."""
+    the card, ``chip_smoke.py`` phase 15).
+
+    The SVD of ``R_t^H`` runs on the host (LAPACK), for every core, one
+    or a stack, as the JAX package's refined pipelines do: cuSOLVER's
+    Jacobi SVD fails to converge on cores whose spectra run down to the
+    f64 floor, a property of the core and not of the batch, and torch then
+    runs its slower fallback after the failed sweeps (``chip_smoke.py``
+    phase 23, ``PERF.md``)."""
     qt, rt = torch.linalg.qr(b.mH)
-    uh, s, wh = torch.linalg.svd(rt.mH)
+    uh, s, wh = (x.to(b.device) for x in torch.linalg.svd(rt.mH.cpu()))
     return uh, s, wh @ qt.mH
 
 
@@ -509,7 +516,7 @@ def refined_fused_batch_begin(blocks, generator: torch.Generator,
     cap // rounds`` columns (``rounds = max(cap // min(growth_block, cap //
     2), 2)``), freezing each lane whose residual crossed, with one host read
     a round. Each round draws one Gaussian matrix per block from
-    ``generator``. ``mesh`` is not ported (ROADMAP Queue 1 item 7).
+    ``generator``. ``mesh`` is not ported (ROADMAP Queue 1 item 4).
     """
     if on_unreachable not in ("raise", "mark"):
         raise ValueError("on_unreachable must be 'raise' or 'mark'")

@@ -232,23 +232,21 @@ def _adaptive_rsvd_block_from_omegas(a, omegas, rel_tol: float,
 def _adaptive_rsvd_sliced(a, generator: torch.Generator, rel_tol: float,
                           sample_size: int, max_rank: int | None = None,
                           ortho: str = "auto", small_svd: str = "direct"):
-    """``adaptive_rsvd_block`` of one matrix or operator for a caller that
-    wants the SVD at the achieved rank: ``(svd, history)``. The rank is
-    read on the host and the sketch sliced to it before the small SVD,
-    which then factorizes (rank, n) and not the padded (cap, n) with its
-    zero rows; there is nothing left to mask. A stack cannot be sliced
-    (every block has its own rank) and takes the padded form."""
+    """``adaptive_rsvd_block`` of one matrix, operator or stack for a caller
+    that takes each SVD at its achieved rank (one compression, the block
+    stream): ``(svd, ranks, histories)``. The largest rank is read on the
+    host and the sketch sliced to it before the small SVD, which then
+    factorizes (..., kmax, n) and not the padded (..., cap, n) with its
+    zero rows; the triplets beyond each block's own rank are masked to
+    zero (for one matrix kmax is its rank and the mask keeps everything)."""
     op = as_linear_operator(a)
-    if op.batch_shape:
-        raise ValueError("one matrix or operator, not a stack; "
-                         "adaptive_rsvd_block takes a stack")
     sample_size = int(sample_size)
     q, b_mat, ncols, _, hist = _adaptive_loop(
         op, _gaussians(op, generator, sample_size), rel_tol, sample_size,
         _max_iters(op, sample_size, max_rank), ortho)
-    rank = int(ncols)
-    u_b, s, vt = compute_svd(b_mat[:rank], method=small_svd)
-    return SVD(q[:, :rank] @ u_b, s, vt), hist
+    kmax = int(ncols.max())
+    u_b, s, vt = compute_svd(b_mat[..., :kmax, :], method=small_svd)
+    return SVD(q[..., :kmax] @ u_b, s, vt)._masked(ncols), ncols, hist
 
 
 def batched_adaptive_rsvd(blocks: torch.Tensor, generator: torch.Generator,

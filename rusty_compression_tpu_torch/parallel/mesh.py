@@ -6,7 +6,7 @@ stack to the batched pipeline of the requested method. The JAX module also
 shards the stack over a device mesh and caches one compiled program per
 configuration; here one card runs the stack, nothing is compiled, so
 there is no cache, and a ``mesh`` other than ``None`` is refused until the
-multi-card layer is ported (ROADMAP Queue 1 item 7).
+multi-card layer is ported (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ def _refuse_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "sharding a block stack over a device mesh is not ported yet "
-            "(ROADMAP Queue 1 item 7: mesh / sharded / distributed); pass "
+            "(ROADMAP Queue 1 item 4: mesh / sharded / distributed); pass "
             "mesh=None to run the stack on one card")
 
 

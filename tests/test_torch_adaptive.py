@@ -14,7 +14,9 @@ another summation order, amplified by the deflation; atol 1e-12 where a
 lane's last estimate is roundoff itself), the projector
 ``Q Q^H`` and ``Q B`` (atol 1e-9), and the padding, which must be exactly
 zero. With ``ortho="cholqr2"`` on both sides Q has no sign freedom and is
-compared entrywise (atol 1e-9).
+compared entrywise (atol 1e-9). The JAX side (its results and draws) comes
+from ``tests/torch_refs/test_torch_adaptive.npz`` (``make_refs.py``), but
+for ``sample_range_adaptive``, which runs live.
 """
 
 import jax
@@ -29,11 +31,13 @@ from rusty_compression_tpu.parallel.batch import (
 from test_torch_parity import (decade_block, jax_adaptive_omegas,  # noqa: F401
                                jax_adaptive_omegas_stack, low_rank, n, port,
                                projector, t)
+from torch_refs import Refs
 
 BLK = 8
 SHAPE = (96, 64)
 TOL = 3e-4
 MAX_ITERS = SHAPE[1] // BLK
+refs = Refs(__file__)
 
 
 def assert_far_from_tol(hist, tol=TOL):
@@ -56,13 +60,21 @@ def port_loop(port, a, omegas, tol=TOL, ortho="auto", max_iters=MAX_ITERS):
                                          (np.complex128, "auto")])
 def test_adaptive_loop_stops_where_jax_stops(port, dtype, ortho):
     a = decade_block(80, SHAPE, BLK, dtype)
-    key = jax.random.key(81)
-    want = rc.adaptive_range_finder(jnp.asarray(a), key, TOL, BLK,
-                                    ortho=ortho)
-    wq, wb, wncols, witers, whist = (np.asarray(x) for x in want)
+
+    def jax_side():
+        key = jax.random.key(81)
+        out = rc.adaptive_range_finder(jnp.asarray(a), key, TOL, BLK,
+                                       ortho=ortho)
+        return {**dict(zip(("q", "b", "ncols", "iters", "hist"), out)),
+                "omegas": jax_adaptive_omegas(key, SHAPE[1], BLK,
+                                              MAX_ITERS + 1, dtype)}
+
+    want = refs(f"loop {np.dtype(dtype).name} {ortho}", a, jax_side)
+    wq, wb, wncols, witers, whist = (want[k] for k in ("q", "b", "ncols",
+                                                       "iters", "hist"))
     assert_far_from_tol(whist)
-    omegas = jax_adaptive_omegas(key, SHAPE[1], BLK, MAX_ITERS + 1, dtype)
-    q, b, ncols, iters, hist = port_loop(port, a, omegas, ortho=ortho)
+    q, b, ncols, iters, hist = port_loop(port, a, want["omegas"],
+                                         ortho=ortho)
     assert int(iters) == int(witers) and int(ncols) == int(wncols)
     assert 2 <= int(iters) < MAX_ITERS  # a data-dependent stop, not the cap
     np.testing.assert_allclose(n(hist), whist, rtol=1e-6)
@@ -82,13 +94,17 @@ def test_adaptive_loop_on_a_stack_whose_lanes_stop_at_different_rounds(port):
     ``while_loop`` does."""
     blocks = np.stack([decade_block(82 + i, SHAPE, per, np.float64)
                        for i, per in enumerate((4, 8, 16))])
-    key = jax.random.key(83)
-    want = jax_batched_adaptive_rsvd(jnp.asarray(blocks), key, TOL, BLK)
-    _, wranks, whist = want
-    whist = np.asarray(whist)
+    def jax_side():
+        key = jax.random.key(83)
+        _, ranks, hist = jax_batched_adaptive_rsvd(jnp.asarray(blocks), key,
+                                                   TOL, BLK)
+        return {"ranks": ranks, "hist": hist,
+                "omegas": jax_adaptive_omegas_stack(
+                    key, 3, SHAPE[1], BLK, MAX_ITERS + 1, np.float64)}
+
+    want = refs("stack lanes", blocks, jax_side)
+    wranks, whist, omegas = want["ranks"], want["hist"], want["omegas"]
     assert_far_from_tol(whist)
-    omegas = jax_adaptive_omegas_stack(key, 3, SHAPE[1], BLK, MAX_ITERS + 1,
-                                       np.float64)
     q, b, ncols, iters, hist = port_loop(port, blocks, omegas)
     np.testing.assert_array_equal(n(ncols), np.asarray(wranks))
     assert len(set(n(ncols).tolist())) == 3
@@ -114,27 +130,50 @@ def test_adaptive_rsvd_block_given_the_jax_omegas(port, small_svd):
         _adaptive_rsvd_block_from_omegas)
 
     a = decade_block(84, SHAPE, BLK, np.float64)
-    key = jax.random.key(89)  # a draw that keeps clear of TOL
-    wsvd, wrank, whist = jax_adaptive_rsvd_block(
-        jnp.asarray(a), key, TOL, BLK, small_svd=small_svd)
-    assert_far_from_tol(whist)
-    omegas = jax_adaptive_omegas(key, SHAPE[1], BLK, MAX_ITERS + 1,
-                                 np.float64)
+
+    def jax_side():
+        key = jax.random.key(89)  # a draw that keeps clear of TOL
+        wsvd, wrank, whist = jax_adaptive_rsvd_block(
+            jnp.asarray(a), key, TOL, BLK, small_svd=small_svd)
+        return {"s": wsvd.s, "to_mat": wsvd.to_mat(), "rank": wrank,
+                "hist": whist, "omegas": jax_adaptive_omegas(
+                    key, SHAPE[1], BLK, MAX_ITERS + 1, np.float64)}
+
+    want = refs(f"rsvd block {small_svd}", a, jax_side)
+    assert_far_from_tol(want["hist"])
     svd, rank, hist = _adaptive_rsvd_block_from_omegas(
-        t(a), iter([t(o) for o in omegas]), TOL, BLK, small_svd=small_svd)
+        t(a), iter([t(o) for o in want["omegas"]]), TOL, BLK,
+        small_svd=small_svd)
     k = int(rank)
-    assert k == int(wrank)
+    assert k == int(want["rank"])
     assert svd.u.shape == (SHAPE[0], SHAPE[1]) and svd.s.shape == (SHAPE[1],)
     assert not svd.u[:, k:].any() and not svd.s[k:].any() \
         and not svd.vt[k:].any()
-    ws = np.asarray(wsvd.s)
+    ws = want["s"]
     assert np.all(ws[k:] <= 1e-12 * ws[0])  # JAX: zero up to roundoff
     live = ws[:k] > (1e-6 if small_svd == "gram" else 0.0) * ws[0]
     np.testing.assert_allclose(n(svd.s)[:k][live], ws[:k][live], rtol=1e-8)
-    np.testing.assert_allclose(n(svd.to_mat()), np.asarray(wsvd.to_mat()),
-                               atol=1e-9)
-    np.testing.assert_allclose(n(hist), np.asarray(whist), rtol=1e-6)
+    np.testing.assert_allclose(n(svd.to_mat()), want["to_mat"], atol=1e-9)
+    np.testing.assert_allclose(n(hist), want["hist"], rtol=1e-6)
     assert float(port.rt.rel_diff_fro(svd.to_mat(), t(a))) < 5 * TOL
+
+
+def batched_blocks_and_jax():
+    """Two blocks whose ranks differ, and the JAX package's
+    ``batched_adaptive_rsvd`` of them with its draws (stored)."""
+    blocks = np.stack([decade_block(86 + i, SHAPE, per, np.float64)
+                       for i, per in enumerate((4, 16))])
+
+    def jax_side():
+        key = jax.random.key(89)  # a draw that keeps clear of TOL
+        wsvd, wranks, whist = jax_batched_adaptive_rsvd(
+            jnp.asarray(blocks), key, TOL, BLK, max_rank=48)
+        return {"u_shape": np.asarray(wsvd.u.shape), "ranks": wranks,
+                "hist": whist, "to_mat": jax.vmap(lambda s: s.to_mat())(wsvd),
+                "omegas": jax_adaptive_omegas_stack(key, 2, SHAPE[1], BLK, 7,
+                                                    np.float64)}
+
+    return blocks, refs("batched", blocks, jax_side)
 
 
 def test_batched_adaptive_rsvd_matches_jax(port, monkeypatch):
@@ -143,26 +182,45 @@ def test_batched_adaptive_rsvd_matches_jax(port, monkeypatch):
     from rusty_compression_tpu_torch.parallel import batched_adaptive_rsvd
     from test_torch_parity import feed_gaussians
 
-    blocks = np.stack([decade_block(86 + i, SHAPE, per, np.float64)
-                       for i, per in enumerate((4, 16))])
-    key = jax.random.key(89)  # a draw that keeps clear of TOL
-    wsvd, wranks, whist = jax_batched_adaptive_rsvd(
-        jnp.asarray(blocks), key, TOL, BLK, max_rank=48)
-    assert_far_from_tol(whist)
-    left = feed_gaussians(monkeypatch, jax_adaptive_omegas_stack(
-        key, 2, SHAPE[1], BLK, 7, np.float64))
+    blocks, want = batched_blocks_and_jax()
+    assert_far_from_tol(want["hist"])
+    left = feed_gaussians(monkeypatch, want["omegas"])
     svd, ranks, hist = batched_adaptive_rsvd(
         t(blocks), port.torch.Generator(), TOL, BLK, max_rank=48)
-    assert svd.u.shape == (2, SHAPE[0], 48) == np.asarray(wsvd.u).shape
-    np.testing.assert_array_equal(n(ranks), np.asarray(wranks))
+    assert svd.u.shape == (2, SHAPE[0], 48) == tuple(want["u_shape"])
+    np.testing.assert_array_equal(n(ranks), want["ranks"])
     rounds = int(ranks.max()) // BLK
     assert len(left) == 7 - (rounds + 1)  # one draw a round and the first
-    np.testing.assert_allclose(n(hist), np.asarray(whist), rtol=1e-6)
-    recon = jax.vmap(lambda s: s.to_mat())(wsvd)
-    np.testing.assert_allclose(n(svd.to_mat()), np.asarray(recon), atol=1e-9)
+    np.testing.assert_allclose(n(hist), want["hist"], rtol=1e-6)
+    np.testing.assert_allclose(n(svd.to_mat()), want["to_mat"], atol=1e-9)
     for i in range(2):
         assert not svd.s[i, int(ranks[i]):].any()
         assert not svd.u[i, :, int(ranks[i]):].any()
+
+
+def test_sliced_adaptive_rsvd_of_a_stack_matches_jax(port, monkeypatch):
+    """The block stream's form of the stack entry, on the same draws as
+    ``test_batched_adaptive_rsvd_matches_jax``: the small SVD taken at the
+    stack's largest rank, the triplets beyond each block's own rank exactly
+    zero, the reconstructions equal to the JAX package's padded ones."""
+    from rusty_compression_tpu_torch.parallel.batch import (
+        _adaptive_rsvd_sliced)
+    from test_torch_parity import feed_gaussians
+
+    blocks, want = batched_blocks_and_jax()
+    feed_gaussians(monkeypatch, want["omegas"])
+    svd, ranks, hist = _adaptive_rsvd_sliced(
+        t(blocks), port.torch.Generator(), TOL, BLK, max_rank=48)
+    np.testing.assert_array_equal(n(ranks), want["ranks"])
+    kmax = int(ranks.max())
+    assert int(ranks.min()) < kmax and svd.u.shape == (2, SHAPE[0], kmax)
+    assert svd.vt.shape == (2, kmax, SHAPE[1])
+    np.testing.assert_allclose(n(hist), want["hist"], rtol=1e-6)
+    np.testing.assert_allclose(n(svd.to_mat()), want["to_mat"], atol=1e-9)
+    for i in range(2):
+        k = int(ranks[i])
+        assert not svd.s[i, k:].any() and not svd.u[i, :, k:].any()
+        assert not svd.vt[i, k:].any()
 
 
 def test_sample_range_adaptive_matches_jax(port):

@@ -5,9 +5,12 @@ JAX ``compress`` draws from its key, so each route computes on the same
 numbers: pivots must be equal, singular values agree to rtol 1e-9 and
 reconstructions to atol 1e-9 (f64; sigma_1 = 1). The blocks are 80 x 60,
 so every pivoted QR takes the plain Gram–Schmidt route on both sides and
-needs no random sketch of its own.
+needs no random sketch of its own. The JAX side (its results and its
+draws) comes from ``tests/torch_refs/test_torch_config.npz``
+(``make_refs.py``), but for the stack's rSVD route, which runs live.
 """
 
+import types
 import warnings
 
 import jax
@@ -20,12 +23,14 @@ from test_torch_parity import (block_keys, feed_gaussians,  # noqa: F401
                                jax_adaptive_omegas, jax_adaptive_omegas_stack,
                                jax_gaussian, jax_nystrom_omegas, jax_sketch,
                                low_rank, n, port, t)
+from torch_refs import Refs
 
 SHAPE = (80, 60)
 M, N = SHAPE
 CLASS = {"rsvd": "SVD", "nystrom": "SVD", "column_id": "ColumnID",
          "row_id": "RowID", "two_sided_id": "TwoSidedID",
          "sketched_two_sided_id": "TwoSidedID"}
+refs = Refs(__file__)
 
 
 def jax_draws(method, key, cfg, dtype=np.float64):
@@ -44,13 +49,23 @@ def stacked(draws_per_block):
     return [np.stack(mats) for mats in zip(*draws_per_block)]
 
 
-def assert_same_factors(got, want):
-    for name in ("ind", "col_ind", "row_ind"):
+def factors_of(want, recon) -> dict:
+    """What the tests compare of a JAX container: its class, rank, pivots,
+    singular values and reconstruction."""
+    out = {"type": type(want).__name__, "rank": want.rank,
+           "to_mat": np.asarray(recon)}
+    for name in ("ind", "col_ind", "row_ind", "s"):
         if hasattr(want, name):
-            np.testing.assert_array_equal(n(getattr(got, name)),
-                                          np.asarray(getattr(want, name)))
-    if hasattr(want, "s"):
-        np.testing.assert_allclose(n(got.s), np.asarray(want.s), rtol=1e-9)
+            out[name] = np.asarray(getattr(want, name))
+    return out
+
+
+def assert_same_factors(got, want: dict):
+    for name in ("ind", "col_ind", "row_ind"):
+        if name in want:
+            np.testing.assert_array_equal(n(getattr(got, name)), want[name])
+    if "s" in want:
+        np.testing.assert_allclose(n(got.s), want["s"], rtol=1e-9)
 
 
 @pytest.mark.parametrize("method", sorted(CLASS))
@@ -59,52 +74,72 @@ def test_single_matrix_routes_match_jax(port, monkeypatch, method):
     iters = 0 if method == "nystrom" else 1
     kwargs = dict(method=method, power_iters=iters)
     cfg = port.rt.CompressionConfig.RANK(12, **kwargs)
-    key = jax.random.key(1)
-    want = rc.compress(jnp.asarray(a), key,
-                       rc.CompressionConfig.RANK(12, **kwargs))
-    left = feed_gaussians(monkeypatch, jax_draws(method, key, cfg))
+
+    def jax_side():
+        key = jax.random.key(1)
+        out = rc.compress(jnp.asarray(a), key,
+                          rc.CompressionConfig.RANK(12, **kwargs))
+        return {**factors_of(out, out.to_mat()),
+                "draws": jax_draws(method, key, cfg)}
+
+    want = refs(f"single {method}", a, jax_side)
+    left = feed_gaussians(monkeypatch, want["draws"])
     got = port.rt.compress(t(a), port.torch.Generator(), cfg)
     assert not left
-    assert type(got).__name__ == type(want).__name__ == CLASS[method]
-    assert got.rank == want.rank == 12
+    assert type(got).__name__ == str(want["type"]) == CLASS[method]
+    assert got.rank == int(want["rank"]) == 12
     assert_same_factors(got, want)
-    np.testing.assert_allclose(n(got.to_mat()), np.asarray(want.to_mat()),
-                               atol=1e-9)
+    np.testing.assert_allclose(n(got.to_mat()), want["to_mat"], atol=1e-9)
     assert float(port.rt.rel_diff_fro(got.to_mat(), t(a))) < 1e-1
 
 
 @pytest.mark.parametrize("method", sorted(CLASS))
 def test_stack_routes_match_jax(port, monkeypatch, method):
+    """The rSVD route runs the JAX package live, the others read its
+    stored results."""
     blocks = np.stack([low_rank(121 + i, SHAPE, 1e-10, np.float64)
                        for i in range(3)])
     cfg = port.rt.CompressionConfig.RANK(8, method=method)
-    key = jax.random.key(3)
-    want = rc.compress(jnp.asarray(blocks), key,
-                       rc.CompressionConfig.RANK(8, method=method))
-    draws = stacked([jax_draws(method, k, cfg) for k in block_keys(key, 3)])
-    left = feed_gaussians(monkeypatch, draws)
+
+    def jax_side():
+        key = jax.random.key(3)
+        out = rc.compress(jnp.asarray(blocks), key,
+                          rc.CompressionConfig.RANK(8, method=method))
+        draws = stacked([jax_draws(method, k, cfg)
+                         for k in block_keys(key, 3)])
+        return {**factors_of(out, jax.vmap(type(out).to_mat)(out)),
+                "draws": draws}
+
+    want = jax_side() if method == "rsvd" else refs(f"stack {method}",
+                                                    blocks, jax_side)
+    left = feed_gaussians(monkeypatch, want["draws"])
     got = port.rt.compress(t(blocks), port.torch.Generator(), cfg)
     assert not left and type(got).__name__ == CLASS[method]
     assert_same_factors(got, want)
-    recon = jax.vmap(type(want).to_mat)(want)
     assert got.to_mat().shape == (3, M, N)
-    np.testing.assert_allclose(n(got.to_mat()), np.asarray(recon), atol=1e-9)
+    np.testing.assert_allclose(n(got.to_mat()), want["to_mat"], atol=1e-9)
 
 
 def test_adaptive_single_matches_jax(port, monkeypatch):
     a = low_rank(124, SHAPE, 1e-10, np.float64)
-    key = jax.random.key(2)
-    wsvd, whist = rc.compress(jnp.asarray(a), key,
-                              rc.CompressionConfig.ADAPTIVE(1e-5))
-    feed_gaussians(monkeypatch, jax_adaptive_omegas(key, N, 10, 7,
-                                                    np.float64))
+
+    def jax_side():
+        key = jax.random.key(2)
+        wsvd, whist = rc.compress(jnp.asarray(a), key,
+                                  rc.CompressionConfig.ADAPTIVE(1e-5))
+        return {"rank": wsvd.rank, "s": wsvd.s, "hist": whist,
+                "omegas": jax_adaptive_omegas(key, N, 10, 7, np.float64)}
+
+    want = refs("adaptive single", a, jax_side)
+    feed_gaussians(monkeypatch, want["omegas"])
     svd, hist = port.rt.compress(t(a), port.torch.Generator(),
                                  port.rt.CompressionConfig.ADAPTIVE(1e-5))
-    live = np.asarray(whist)[np.asarray(whist) > 0]
+    whist = want["hist"]
+    live = whist[whist > 0]
     assert np.all((live > 1.5e-5) | (live < 1e-5 / 1.5))  # a clear stop
-    assert svd.rank == wsvd.rank and svd.rank % 10 == 0
-    np.testing.assert_allclose(n(hist), np.asarray(whist), rtol=1e-6)
-    np.testing.assert_allclose(n(svd.s), np.asarray(wsvd.s), rtol=1e-8)
+    assert svd.rank == int(want["rank"]) and svd.rank % 10 == 0
+    np.testing.assert_allclose(n(hist), whist, rtol=1e-6)
+    np.testing.assert_allclose(n(svd.s), want["s"], rtol=1e-8)
     assert float(port.rt.rel_diff_fro(svd.to_mat(), t(a))) < 5e-5
 
 
@@ -116,18 +151,24 @@ def test_adaptive_knobs_reach_the_stack_pipeline(port, monkeypatch):
     blocks = np.stack([a, a])
     kwargs = dict(max_rank=24, sample_size=8, ortho="cholqr2",
                   small_svd="gram")
-    key = jax.random.key(1)
-    wsvd, wranks, whist = rc.compress(
-        jnp.asarray(blocks), key, rc.CompressionConfig.ADAPTIVE(1e-3,
-                                                                **kwargs))
-    feed_gaussians(monkeypatch, jax_adaptive_omegas_stack(
-        key, 2, 80, 8, 4, np.float64))
+
+    def jax_side():
+        key = jax.random.key(1)
+        wsvd, wranks, whist = rc.compress(
+            jnp.asarray(blocks), key,
+            rc.CompressionConfig.ADAPTIVE(1e-3, **kwargs))
+        return {"width": np.asarray(wsvd.u).shape[-1], "ranks": wranks,
+                "hist": whist, "omegas": jax_adaptive_omegas_stack(
+                    key, 2, 80, 8, 4, np.float64)}
+
+    want = refs("adaptive knobs", blocks, jax_side)
+    feed_gaussians(monkeypatch, want["omegas"])
     svd, ranks, hist = port.rt.compress(
         t(blocks), port.torch.Generator(),
         port.rt.CompressionConfig.ADAPTIVE(1e-3, **kwargs))
-    assert svd.u.shape[-1] == np.asarray(wsvd.u).shape[-1] == 24
-    np.testing.assert_array_equal(n(ranks), np.asarray(wranks))
-    np.testing.assert_allclose(n(hist), np.asarray(whist), rtol=1e-6)
+    assert svd.u.shape[-1] == int(want["width"]) == 24
+    np.testing.assert_array_equal(n(ranks), want["ranks"])
+    np.testing.assert_allclose(n(hist), want["hist"], rtol=1e-6)
 
 
 @pytest.mark.parametrize("kwargs,match", [
@@ -167,23 +208,39 @@ def test_pallas_is_refused_by_name(port):
 @pytest.mark.parametrize("what", ["list", "highacc_list", "mesh_rank",
                                   "mesh_adaptive"])
 def test_later_slices_are_refused_by_name(port, what):
+    """A list of blocks takes the block stream (rank and highacc); a mesh
+    is refused by name (the multi-card layer, ROADMAP Queue 1 item 4)."""
     torch, rt = port.torch, port.rt
     a = t(low_rank(126, SHAPE, 1e-6, np.float64))
     g = torch.Generator()
     rank, adaptive = rt.CompressionConfig.RANK(4), \
         rt.CompressionConfig.ADAPTIVE(1e-3)
-    call, item = {
-        "list": (lambda: rt.compress([a, a[:40, :30]], g, rank), "item 7"),
-        "highacc_list": (lambda: rt.compress(
-            [a, a[:40, :30]], g, rt.CompressionConfig.ADAPTIVE(
-                1e-8, highacc=True, round_rank=16)), "item 7"),
-        "mesh_rank": (lambda: rt.compress(torch.stack([a, a]), g, rank,
-                                          mesh=object()), "item 7"),
-        "mesh_adaptive": (lambda: rt.compress(torch.stack([a, a]), g,
-                                              adaptive, mesh=object()),
-                          "item 7"),
+    if what in ("list", "highacc_list"):
+        blocks = [a, a[:40, :30]]
+        if what == "highacc_list":  # spectra that cross 1e-8
+            blocks = [t(low_rank(126, SHAPE, 1e-12, np.float64)),
+                      t(low_rank(127, (40, 30), 1e-12, np.float64, rank=20))]
+        cfg = rank if what == "list" else rt.CompressionConfig.ADAPTIVE(
+            1e-8, highacc=True, round_rank=16)
+        out = rt.compress(blocks, g.manual_seed(0), cfg)
+        assert [r.index for r in out] == [0, 1]
+        assert [r.shape for r in out] == [SHAPE, (40, 30)]
+        assert all(r.ok and r.bucket == (128, 128) for r in out)
+        for r, b in zip(out, blocks):
+            err = float(rt.rel_diff_fro(r.factors.to_mat(), b))
+            assert r.rel_residual == pytest.approx(err, rel=1e-9)
+            s = np.linalg.svd(n(b), compute_uv=False)
+            k = r.rank
+            opt = np.sqrt((s[k:] ** 2).sum() / (s ** 2).sum())
+            assert err <= (2 * opt if what == "list" else 5e-8)
+        return
+    call = {
+        "mesh_rank": lambda: rt.compress(torch.stack([a, a]), g, rank,
+                                         mesh=object()),
+        "mesh_adaptive": lambda: rt.compress(torch.stack([a, a]), g,
+                                             adaptive, mesh=object()),
     }[what]
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="item 4"):
         call()
 
 
@@ -318,19 +375,13 @@ def test_exported_names_against_the_jax_package(port):
 
     from rusty_compression_tpu_torch import parallel
 
-    still_to_port = {
-        # persistence, the native loader, logging and profiling helpers
-        # (item 7)
-        "io", "native", "MetricsLogger", "sync", "timeit_slope", "trace",
-    }
+    still_to_port: set = set()
     assert set(rc.__all__) - set(port.rt.__all__) == still_to_port
     assert set(port.rt.__all__) <= set(rc.__all__)
     for name in port.rt.__all__:
         assert hasattr(port.rt, name), name
-    parallel_gaps = {
+    parallel_gaps = {  # the multi-card layer (ROADMAP Queue 1 item 4)
         "make_mesh", "shard_blocks", "replicate", "RowShardedOperator",
-        "BlockResult", "bucket_dim", "plan_buckets",
-        "compress_heterogeneous", "compress_heterogeneous_refined",
         "initialize", "global_mesh", "local_block_slice", "gather_factors"}
     assert set(jpar.__all__) - set(parallel.__all__) == parallel_gaps
 
@@ -352,7 +403,6 @@ def test_hilbert_column_id_and_the_pivot_shortlist(port, candidates, within):
     from rusty_compression_tpu_torch.utils.kernel_matrices import hilbert
 
     h = hilbert(1024, device="cpu")
-    jh = jhilbert(1024, dtype=jnp.float64)
     s = np.linalg.svd(n(h), compute_uv=False)
 
     def verdict(cid, err):
@@ -364,12 +414,19 @@ def test_hilbert_column_id_and_the_pivot_shortlist(port, candidates, within):
         h, max_rank=64, generator=port.torch.Generator().manual_seed(0),
         **kwargs) \
         .compress(port.rt.CompressionType.ADAPTIVE(1e-8)).column_id()
-    want = rc.QR.compute_from(jh, max_rank=64,
-                              pivot_candidates=candidates or 0) \
-        .compress(rc.CompressionType.ADAPTIVE(1e-8)).column_id()
+
+    def jax_side():
+        jh = jhilbert(1024, dtype=jnp.float64)
+        cid = rc.QR.compute_from(jh, max_rank=64,
+                                 pivot_candidates=candidates or 0) \
+            .compress(rc.CompressionType.ADAPTIVE(1e-8)).column_id()
+        return {"rank": cid.rank, "err": rc.rel_diff_fro(cid.to_mat(), jh)}
+
+    want = refs(f"hilbert {candidates}", 1024, jax_side)
     assert verdict(got, float(port.rt.rel_diff_fro(got.to_mat(), h))) \
         == within
-    assert verdict(want, float(rc.rel_diff_fro(want.to_mat(), jh))) == within
+    assert verdict(types.SimpleNamespace(rank=int(want["rank"])),
+                   float(want["err"])) == within
     cols = h[:, got.col_ind[:got.rank]]
     assert float((got.c - cols).abs().max()) <= 1e-12  # columns stay exact
 

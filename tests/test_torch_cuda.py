@@ -1,5 +1,6 @@
 """K1 and K2 on the card: the CUDA kernels against their plain version, and
-the routes that launch them; and the tol <= 1e-8 pipelines in f64/c128.
+the routes that launch them; the tol <= 1e-8 pipelines in f64/c128; the
+block stream, its pinned packing and checkpoints.
 
 These tests need an NVIDIA card (marker ``cuda``) and skip without one.
 This file imports neither JAX nor the JAX package, so that on a machine
@@ -563,3 +564,169 @@ def test_batched_growth_and_marking_on_the_card(k1):
     outs = rt.refined_rsvd_fused_batch(stack, g, round_rank=56, tol=1e-8,
                                        on_unreachable="mark")
     assert [o.tol_ok for o in outs] == [False, True, True, True]
+
+
+# ---------------------------------------------------------------------------
+# The block stream, its pinned packing and checkpoints on the card
+# ---------------------------------------------------------------------------
+
+
+_SHAPES = [(300, 150), (140, 600), (256, 256), (45, 700), (520, 130),
+           (90, 90)]
+
+
+def _stream_blocks(dtype, seed=90):
+    """Blocks of six shapes over several buckets, exact rank 12 (f32) or
+    sigma_i = 10^(-10 i / 39) with floor 1e-12 (f64)."""
+    if dtype == np.float64:
+        return [_decaying(seed + i, m, n, 40) for i, (m, n) in
+                enumerate(_SHAPES)]
+    rng = np.random.default_rng(seed)
+    out = []
+    for m, n in _SHAPES:
+        u = np.linalg.qr(rng.standard_normal((m, 12)))[0]
+        v = np.linalg.qr(rng.standard_normal((n, 12)))[0]
+        out.append(((u * np.geomspace(1.0, 1e-2, 12)) @ v.T).astype(dtype))
+    return out
+
+
+def _laplace_stream(seed=91):
+    """f32 Laplace blocks between unit clouds 3-5 apart (the clouds of
+    ``tools/_gen_blocks10k.py``), of the same shapes. The adaptive loop
+    needs a spectrum without an exact rank: on a block of exact rank in f32
+    it runs to the cap in both packages (the probes of the deflated
+    residual are roundoff)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, (m, n) in enumerate(_SHAPES):
+        x = rng.uniform(-0.5, 0.5, (m, 3))
+        y = rng.uniform(-0.5, 0.5, (n, 3)) + [3.0 + 0.5 * (i % 5),
+                                              0.5 * (i % 3), 0.0]
+        d = np.sqrt(((x[:, None, :] - y[None]) ** 2).sum(-1))
+        out.append((1.0 / (4.0 * np.pi * d)).astype(np.float32))
+    return out
+
+
+@pytest.mark.parametrize("stream", ["sketched_two_sided_id", "rsvd",
+                                    "tolerance", "refined"])
+def test_block_stream_on_the_card_against_the_cpu(k1, stream):
+    """Host numpy blocks through the stream on both devices: the same
+    buckets and ranks, residuals within 1e-5 (f32) / 1e-12 (f64), factors
+    on the host; the ID stream launches K1."""
+    import torch
+
+    from rusty_compression_tpu_torch.parallel import scheduler
+
+    f64 = stream == "refined"
+    blocks = (_laplace_stream() if stream == "tolerance"
+              else _stream_blocks(np.float64 if f64 else np.float32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        g = torch.Generator(device=dev).manual_seed(11)
+        before = k1.qrcp_panel.launch_count
+        if stream == "refined":
+            res = scheduler.compress_heterogeneous_refined(
+                blocks, g, rel_tol=1e-8, round_rank=32, chunk_bytes=1 << 20)
+        elif stream == "tolerance":
+            res = scheduler.compress_heterogeneous(
+                blocks, g, rel_tol=1e-3, sample_size=16, chunk_bytes=1 << 20)
+        else:
+            res = scheduler.compress_heterogeneous(
+                blocks, g, rank=12, method=stream, chunk_bytes=1 << 20)
+        torch.cuda.synchronize()
+        launched = k1.qrcp_panel.launch_count - before
+        assert (launched > 0) == (dev == "cuda" and stream.endswith("_id"))
+        out[dev] = res
+    for c, d in zip(out["cpu"], out["cuda"]):
+        assert (c.index, c.bucket, c.rank, c.ok) == (d.index, d.bucket,
+                                                     d.rank, d.ok)
+        assert abs(c.rel_residual - d.rel_residual) <= (1e-12 if f64
+                                                        else 1e-5)
+        assert all(getattr(d.factors, f).device.type == "cpu"
+                   for f in d.factors.__dataclass_fields__)
+
+
+def test_refined_stream_of_single_block_chunks(k1):
+    """``chunk_bytes`` of less than one block: every chunk holds one block
+    (a 1536 x 2048 f64 block among the six), so every core SVD is that of
+    one matrix. The card gives the CPU's ranks and residuals (1e-12), no
+    block takes a fallback, and no SVD warns that it did not converge.
+    Prints the stream's time on the card."""
+    import logging
+    import time
+    import warnings
+
+    import torch
+
+    from rusty_compression_tpu_torch.parallel import scheduler
+
+    blocks = _stream_blocks(np.float64) + [_decaying(97, 1536, 2048, 60)]
+    counts = []
+
+    class Tally(logging.Handler):
+        def emit(self, record):
+            if hasattr(record, "fallbacks"):
+                counts.append(record.fallbacks)
+
+    lg = logging.getLogger("rusty_compression_tpu_torch.scheduler")
+    level, tally = lg.level, Tally()
+    lg.setLevel(logging.INFO)
+    lg.addHandler(tally)
+    out, seconds = {}, {}
+    try:
+        for dev in ("cpu", "cuda"):
+            g = torch.Generator(device=dev).manual_seed(12)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                t0 = time.perf_counter()
+                out[dev] = scheduler.compress_heterogeneous_refined(
+                    blocks, g, rel_tol=1e-8, chunk_bytes=1)
+                seconds[dev] = time.perf_counter() - t0
+            assert not [w for w in caught if "converge" in str(w.message)]
+    finally:
+        lg.removeHandler(tally)
+        lg.setLevel(level)
+    assert [c["blocks"] for c in counts] == [0, 0]
+    for c, d in zip(out["cpu"], out["cuda"]):
+        assert c.ok and d.ok and (c.bucket, c.rank) == (d.bucket, d.rank)
+        assert abs(c.rel_residual - d.rel_residual) <= 1e-12
+    print(f"\nrefined stream, {len(blocks)} single-block chunks: "
+          f"{seconds['cuda']:.3f} s on the card, {seconds['cpu']:.3f} s on "
+          f"the CPU ({torch.cuda.get_device_name(0)})")
+
+
+def test_pinned_packing_round_trip(k1):
+    """Host blocks packed into the pinned slots and copied to the card: the
+    zero-padded stack, bitwise; a slot is reused once its copy is done."""
+    import torch
+
+    from rusty_compression_tpu_torch.parallel.scheduler import _Packer
+
+    blocks = _stream_blocks(np.float32)
+    shapes = [b.shape for b in blocks]
+    packer = _Packer(torch.device("cuda"), window=2)
+    for rep in range(3):
+        for idxs, (bm, bn) in (([0, 5], (512, 256)), ([3], (128, 1024))):
+            stack = packer.pack(blocks, shapes, idxs, bm, bn, torch.float32)
+            assert stack.device.type == "cuda"
+            want = torch.zeros((len(idxs), bm, bn))
+            for s, i in enumerate(idxs):
+                want[s, :shapes[i][0], :shapes[i][1]] = torch.from_numpy(
+                    blocks[i])
+            assert torch.equal(stack.cpu(), want)
+    assert all(buf.is_pinned() for buf in packer.slots)
+    assert packer.count == 6
+
+
+def test_load_factors_onto_the_card(k1, tmp_path):
+    import torch
+
+    import rusty_compression_tpu_torch as rt
+
+    a = torch.tensor(_decaying(95, 200, 150), device="cuda")
+    cid = rt.QR.compute_from(a, max_rank=20).column_id()
+    path = str(tmp_path / "f.npz")
+    rt.io.save_factors(path, cid)
+    back = rt.io.load_factors(path)   # device="cuda" by default
+    assert back.c.device.type == "cuda" and back.col_ind.dtype == torch.int64
+    assert torch.equal(back.c, cid.c) and torch.equal(back.z, cid.z)

@@ -8,9 +8,12 @@ rank, the interpolation coefficients, the column ID of a core and the row
 ID of skeleton columns, with factors within 1e-12 of their largest entry.
 End to end the two capture from different random matrices and are held to
 their contracts: rel err <= 5 tol (two-sided: 10 tol), ranks within 2 of
-each other, skeletons bitwise A's entries. The JAX results are computed
-once per module.
+each other, skeletons bitwise A's entries. The JAX package's end-to-end
+results come from ``tests/torch_refs/test_torch_highacc_id.npz``
+(``make_refs.py``); its deterministic tails run live.
 """
+
+import types
 
 import jax
 import numpy as np
@@ -22,17 +25,36 @@ from rusty_compression_tpu.utils.errors import CompressionError as JaxError
 from test_torch_highacc import (A_CPLX, A_REAL, TOL, core_of,  # noqa: F401
                                 crossing, decaying, flat, gen)
 from test_torch_parity import n, port, t  # noqa: F401
+from torch_refs import Refs
+
+refs = Refs(__file__)
 
 
 @pytest.fixture(scope="module")
 def jax_ids():
+    """The JAX package's IDs of the module's inputs (stored): their
+    factors and rank."""
     key = jax.random.key(1)
-    return {
-        "column": jhid.refined_column_id(A_REAL, key, tol=TOL),
-        "col": jhid.refined_two_sided_id(A_REAL, key, tol=TOL, side="col"),
-        "row": jhid.refined_two_sided_id(A_REAL, key, tol=TOL, side="row"),
-        "complex": jhid.refined_column_id(A_CPLX, key, tol=TOL),
+    calls = {
+        "column": lambda: jhid.refined_column_id(A_REAL, key, tol=TOL),
+        "col": lambda: jhid.refined_two_sided_id(A_REAL, key, tol=TOL,
+                                                 side="col"),
+        "row": lambda: jhid.refined_two_sided_id(A_REAL, key, tol=TOL,
+                                                 side="row"),
+        "complex": lambda: jhid.refined_column_id(A_CPLX, key, tol=TOL),
     }
+
+    def fields(call):
+        out = call()
+        names = ("c", "z") if hasattr(out, "z") else ("c", "x", "r")
+        return {"rank": out.rank,
+                **{name: np.asarray(getattr(out, name)) for name in names}}
+
+    return {name: types.SimpleNamespace(**{
+        k: (int(v) if k == "rank" else v)
+        for k, v in refs(name, (A_REAL, A_CPLX),
+                         lambda c=call: fields(c)).items()})
+        for name, call in calls.items()}
 
 
 def rel_fro(x, a):

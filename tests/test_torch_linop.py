@@ -4,10 +4,14 @@ matrices, and the coercions of ``as_linear_operator``.
 
 The same numpy matrices go into both packages. Products agree to 1e-12
 (f64/c128) or 1e-5 (f32/c64) of the largest entry: one or two GEMMs in
-another summation order.
+another summation order. The JAX side comes from
+``tests/torch_refs/test_torch_linop.npz`` (``make_refs.py``), but for the
+``matvec`` closures, which run live.
 """
 
+import dataclasses
 import inspect
+import re
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +20,9 @@ import pytest
 
 import rusty_compression_tpu as rc
 from test_torch_parity import jax_sketch, low_rank, n, port, t  # noqa: F401
+from torch_refs import Refs
+
+refs = Refs(__file__)
 
 
 def close(got, want, dtype=np.float64):
@@ -40,21 +47,36 @@ def test_factored_operator_matches_jax(port, kind):
     from rusty_compression_tpu_torch import interop
 
     a = low_rank(110, (60, 45), 1e-8, np.float64)
-    jqr = rc.QR.compute_from(jnp.asarray(a), max_rank=20)
-    factors = {"SVD": lambda: rc.SVD.compute_from(jnp.asarray(a)),
-               "ColumnID": jqr.column_id,
-               "TwoSidedID": lambda: jqr.column_id().two_sided_id()}[kind]()
-    want = rc.as_linear_operator(factors)
+    x, y = probes((60, 45))
+
+    def jax_side():
+        jqr = rc.QR.compute_from(jnp.asarray(a), max_rank=20)
+        factors = {"SVD": lambda: rc.SVD.compute_from(jnp.asarray(a)),
+                   "ColumnID": jqr.column_id,
+                   "TwoSidedID": lambda: jqr.column_id().two_sided_id()}[
+            kind]()
+        op = rc.as_linear_operator(factors)
+        return {"type": type(op).__name__, "shape": op.shape,
+                "matmat": op.matmat(jnp.asarray(x)),
+                "conj_matmat": op.conj_matmat(jnp.asarray(y)),
+                "to_dense": op.to_dense(),
+                **{f"factor {f.name}": getattr(factors, f.name)
+                   for f in dataclasses.fields(factors)}}
+
+    want = refs(f"factored {kind}", (a, x, y), jax_side)
+    # the JAX container, rebuilt from its stored leaves (nothing runs)
+    factors = getattr(rc, kind)(**{
+        name.split(" ", 1)[1]: v for name, v in want.items()
+        if name.startswith("factor ")})
     got = port.rt.as_linear_operator(interop.from_numpy(factors,
                                                         device="cpu"))
-    assert type(got).__name__ == type(want).__name__ == "FactoredOperator"
-    assert got.shape == want.shape == (60, 45)
+    assert type(got).__name__ == str(want["type"]) == "FactoredOperator"
+    assert got.shape == tuple(want["shape"]) == (60, 45)
     assert got.dtype == port.torch.float64 and got.batch_shape == ()
     assert got.has_cheap_dense()
-    x, y = probes((60, 45))
-    close(got.matmat(t(x)), want.matmat(jnp.asarray(x)))
-    close(got.conj_matmat(t(y)), want.conj_matmat(jnp.asarray(y)))
-    close(got.to_dense(), want.to_dense())
+    close(got.matmat(t(x)), want["matmat"])
+    close(got.conj_matmat(t(y)), want["conj_matmat"])
+    close(got.to_dense(), want["to_dense"])
 
 
 def test_factored_operator_rejects_non_container(port):
@@ -124,15 +146,28 @@ def test_function_operator_without_adjoint(port):
     ta = t(a)
     err = torch.linalg.norm(ta - q @ (q.mT @ ta)) / torch.linalg.norm(ta)
     assert float(err) < 5 * 10 ** (-10 * 30 / 99)
-    for op, ones, sample, arg in (
-            (got, torch.ones((150, 3), dtype=torch.float64),
-             rt.sample_range_adaptive, g),
-            (want, jnp.ones((150, 3)), rc.sample_range_adaptive,
-             jax.random.key(5))):
-        with pytest.raises(NotImplementedError, match="conj_matvec"):
-            op.conj_matmat(ones)
-        with pytest.raises(NotImplementedError, match="conj_matvec"):
-            sample(op, arg, 1e-5, sample_size=10)
+    with pytest.raises(NotImplementedError, match="conj_matvec"):
+        got.conj_matmat(torch.ones((150, 3), dtype=torch.float64))
+    with pytest.raises(NotImplementedError, match="conj_matvec"):
+        rt.sample_range_adaptive(got, g, 1e-5, sample_size=10)
+
+    def jax_side():  # the JAX package's messages
+        out = {}
+        for name, call in (
+                ("conj_matmat", lambda: want.conj_matmat(jnp.ones((150, 3)))),
+                ("sample", lambda: rc.sample_range_adaptive(
+                    want, jax.random.key(5), 1e-5, sample_size=10))):
+            try:
+                call()
+                out[name] = "no error"
+            except NotImplementedError as ex:
+                out[name] = f"NotImplementedError: {ex}"
+        return out
+
+    raised = refs("without adjoint", a, jax_side)
+    for name in ("conj_matmat", "sample"):
+        assert re.match("NotImplementedError: .*conj_matvec",
+                        str(raised[name])), raised[name]
 
 
 def test_function_operator_through_the_samplers(port):
@@ -190,17 +225,25 @@ def combinators(ns, b, c):
 def test_combinators_match_jax(port, kind):
     rng = np.random.default_rng(114)
     b, c = rng.standard_normal((2, 30, 20))
-    want = combinators(rc, jnp.asarray(b), jnp.asarray(c))[kind]
     got = combinators(port.rt, t(b), t(c))[kind]
-    assert type(got).__name__ == type(want).__name__
-    assert got.shape == want.shape
     cplx = kind == "scaled_complex"
+    x, y = probes(got.shape, np.complex128 if cplx else np.float64)
+
+    def jax_side():
+        op = combinators(rc, jnp.asarray(b), jnp.asarray(c))[kind]
+        return {"type": type(op).__name__, "shape": op.shape,
+                "matmat": op.matmat(jnp.asarray(x)),
+                "conj_matmat": op.conj_matmat(jnp.asarray(y)),
+                "to_dense": op.to_dense()}
+
+    want = refs(f"combinator {kind}", (b, c, x, y), jax_side)
+    assert type(got).__name__ == str(want["type"])
+    assert got.shape == tuple(want["shape"])
     assert got.dtype == (port.torch.complex128 if cplx
                          else port.torch.float64)
-    x, y = probes(got.shape, np.complex128 if cplx else np.float64)
-    close(got.matmat(t(x)), want.matmat(jnp.asarray(x)))
-    close(got.conj_matmat(t(y)), want.conj_matmat(jnp.asarray(y)))
-    close(got.to_dense(), want.to_dense())
+    close(got.matmat(t(x)), want["matmat"])
+    close(got.conj_matmat(t(y)), want["conj_matmat"])
+    close(got.to_dense(), want["to_dense"])
 
 
 def test_combinator_checks(port):
@@ -250,13 +293,19 @@ def test_sparse_operator_matches_jax(port, dtype):
     from jax.experimental import sparse as jsparse
 
     dense = sparse_matrix(dtype)
-    want = rc.SparseOperator(jsparse.BCOO.fromdense(jnp.asarray(dense)))
-    got = port.rt.SparseOperator(t(dense).to_sparse_coo())
-    assert got.shape == want.shape and got.has_cheap_dense()
-    assert got.a.is_sparse and got.a._nnz() == np.count_nonzero(dense)
     x, y = probes(dense.shape, dtype)
-    close(got.matmat(t(x)), want.matmat(jnp.asarray(x)), dtype)
-    close(got.conj_matmat(t(y)), want.conj_matmat(jnp.asarray(y)), dtype)
+
+    def jax_side():
+        op = rc.SparseOperator(jsparse.BCOO.fromdense(jnp.asarray(dense)))
+        return {"shape": op.shape, "matmat": op.matmat(jnp.asarray(x)),
+                "conj_matmat": op.conj_matmat(jnp.asarray(y))}
+
+    want = refs(f"sparse {np.dtype(dtype).name}", (dense, x, y), jax_side)
+    got = port.rt.SparseOperator(t(dense).to_sparse_coo())
+    assert got.shape == tuple(want["shape"]) and got.has_cheap_dense()
+    assert got.a.is_sparse and got.a._nnz() == np.count_nonzero(dense)
+    close(got.matmat(t(x)), want["matmat"], dtype)
+    close(got.conj_matmat(t(y)), want["conj_matmat"], dtype)
     close(got.conj_matmat(t(y)), dense.conj().T @ y, dtype)
     np.testing.assert_array_equal(n(got.to_dense()), dense)
 
@@ -279,8 +328,9 @@ def test_sparse_coercions(port, source):
     op = (rt.SparseOperator(make()) if source == "dense"
           else rt.as_linear_operator(make(), device="cpu"))
     assert type(op).__name__ == "SparseOperator"
-    assert type(rc.as_linear_operator(
-        jsparse.BCOO.fromdense(jnp.eye(6)))).__name__ == "SparseOperator"
+    jax_type = refs("bcoo coercion", np.eye(6), lambda: {"type": type(
+        rc.as_linear_operator(jsparse.BCOO.fromdense(jnp.eye(6)))).__name__})
+    assert str(jax_type["type"]) == "SparseOperator"
     assert op.device.type == "cpu" and op.dtype == torch.float64
     x, y = probes(dense.shape)
     close(op.matmat(t(x)), dense @ x)
@@ -364,12 +414,16 @@ def test_sketched_column_id_gathers_by_selector_product(port):
     matmat = op.matmat
     op.matmat = lambda x: widths.append(x.shape) or matmat(x)
     op.to_dense = None  # must not be called
-    key = jax.random.key(117)
-    want = rc.sketched_column_id(jop, key, rank=12)
-    g_h = jax_sketch(key, 90, 20, np.float64)
-    got = _sketched_column_id_from_sketch(op, t(g_h), 12)
+    def jax_side():
+        key = jax.random.key(117)
+        cid = rc.sketched_column_id(jop, key, rank=12)
+        return {"col_ind": cid.col_ind, "c": cid.c, "z": cid.z,
+                "g_h": jax_sketch(key, 90, 20, np.float64)}
+
+    want = refs("sketched column id", a, jax_side)
+    got = _sketched_column_id_from_sketch(op, t(want["g_h"]), 12)
     assert widths == [(70, 12)]
-    np.testing.assert_array_equal(n(got.col_ind), np.asarray(want.col_ind))
-    close(got.c, want.c)
-    np.testing.assert_allclose(n(got.z), np.asarray(want.z), atol=1e-10)
+    np.testing.assert_array_equal(n(got.col_ind), want["col_ind"])
+    close(got.c, want["c"])
+    np.testing.assert_allclose(n(got.z), want["z"], atol=1e-10)
     np.testing.assert_array_equal(n(got.c), a[:, n(got.col_ind[:12])])

@@ -6,7 +6,10 @@
 the largest (a pseudoinverse sits in the pipeline); reconstructions atol
 the same times sigma_1 = 1. From a generator, the accuracy gate of
 ``tests/test_sampling.py::TestNystromSVD``: rel err below ten times the
-first dropped singular value, U orthonormal to 1e-4.
+first dropped singular value, U orthonormal to 1e-4. The JAX side (its
+results and draws) comes from ``tests/torch_refs/test_torch_nystrom.npz``
+(``make_refs.py``); the f64 Gram case draws its Gaussian matrices live
+and holds them to the stored ones.
 """
 
 import jax
@@ -19,11 +22,13 @@ from rusty_compression_tpu.parallel.batch import (
     batched_nystrom as jax_batched_nystrom)
 from test_torch_parity import (block_keys, jax_nystrom_omegas,  # noqa: F401
                                low_rank, n, port, t)
+from torch_refs import Refs
 
 SHAPE = (120, 90)
 K = 20
 TOL = {np.float32: 1e-4, np.complex64: 1e-4, np.float64: 1e-9,
        np.complex128: 1e-9}
+refs = Refs(__file__)
 
 
 @pytest.mark.parametrize("dtype,stabilize,small_svd", [
@@ -34,17 +39,29 @@ def test_nystrom_given_the_jax_omegas(port, dtype, stabilize, small_svd):
     from rusty_compression_tpu_torch.sampling import _nystrom_svd_from_omegas
 
     a = low_rank(100, SHAPE, 1e-6, dtype)
-    key = jax.random.key(101)
-    want = rc.nystrom_svd(jnp.asarray(a), key, k=K, small_svd=small_svd,
-                          stabilize=stabilize)
-    omega, psi_h = jax_nystrom_omegas(key, *SHAPE, K, 8, dtype)
-    got = _nystrom_svd_from_omegas(port.rt.DenseOperator(t(a)), t(omega),
-                                   t(psi_h), K, small_svd, stabilize)
+
+    def jax_side():
+        key = jax.random.key(101)
+        out = rc.nystrom_svd(jnp.asarray(a), key, k=K, small_svd=small_svd,
+                             stabilize=stabilize)
+        omega, psi_h = jax_nystrom_omegas(key, *SHAPE, K, 8, dtype)
+        return {"s": out.s, "to_mat": out.to_mat(), "omega": omega,
+                "psi_h": psi_h}
+
+    want = refs(f"given {np.dtype(dtype).name} {stabilize} {small_svd}", a,
+                jax_side)
+    if dtype == np.float64 and small_svd == "gram":  # the draws, live
+        live = jax_nystrom_omegas(jax.random.key(101), *SHAPE, K, 8, dtype)
+        for got, stored in zip(live, (want["omega"], want["psi_h"])):
+            np.testing.assert_array_equal(got, stored)
+    got = _nystrom_svd_from_omegas(port.rt.DenseOperator(t(a)),
+                                   t(want["omega"]), t(want["psi_h"]), K,
+                                   small_svd, stabilize)
     assert got.rank == K and got.u.shape == (SHAPE[0], K)
     # the unstabilized pinv and the Gram small SVD both lose digits
     tol = TOL[dtype] * (1e3 if not stabilize or small_svd == "gram" else 1)
-    np.testing.assert_allclose(n(got.s), np.asarray(want.s), rtol=tol)
-    np.testing.assert_allclose(n(got.to_mat()), np.asarray(want.to_mat()),
+    np.testing.assert_allclose(n(got.s), np.asarray(want["s"]), rtol=tol)
+    np.testing.assert_allclose(n(got.to_mat()), np.asarray(want["to_mat"]),
                                atol=tol)
     np.testing.assert_allclose(n(got.u.mH @ got.u), np.eye(K),
                                atol=max(tol, 1e-4 if a.itemsize <= 8 else 0))
@@ -72,17 +89,21 @@ def test_batched_nystrom_matches_jax(port, monkeypatch):
 
     blocks = np.stack([low_rank(102 + i, SHAPE, 1e-6, np.float64)
                        for i in range(3)])
-    key = jax.random.key(103)
-    want = jax_batched_nystrom(jnp.asarray(blocks), key, K, oversample=6)
-    pairs = [jax_nystrom_omegas(k, *SHAPE, K, 6, np.float64)
-             for k in block_keys(key, 3)]
-    left = feed_gaussians(monkeypatch, [np.stack([p[0] for p in pairs]),
-                                        np.stack([p[1] for p in pairs])])
+    def jax_side():
+        key = jax.random.key(103)
+        out = jax_batched_nystrom(jnp.asarray(blocks), key, K, oversample=6)
+        pairs = [jax_nystrom_omegas(k, *SHAPE, K, 6, np.float64)
+                 for k in block_keys(key, 3)]
+        return {"s": out.s, "to_mat": jax.vmap(lambda s: s.to_mat())(out),
+                "draws": [np.stack([p[0] for p in pairs]),
+                          np.stack([p[1] for p in pairs])]}
+
+    want = refs("batched", blocks, jax_side)
+    left = feed_gaussians(monkeypatch, want["draws"])
     got = batched_nystrom(t(blocks), port.torch.Generator(), K, oversample=6)
     assert not left and got.u.shape == (3, SHAPE[0], K)
-    np.testing.assert_allclose(n(got.s), np.asarray(want.s), rtol=1e-9)
-    recon = jax.vmap(lambda s: s.to_mat())(want)
-    np.testing.assert_allclose(n(got.to_mat()), np.asarray(recon), atol=1e-9)
+    np.testing.assert_allclose(n(got.s), want["s"], rtol=1e-9)
+    np.testing.assert_allclose(n(got.to_mat()), want["to_mat"], atol=1e-9)
     with pytest.raises(ValueError, match="block stack"):
         batched_nystrom(t(blocks[0]), port.torch.Generator(), K)
 

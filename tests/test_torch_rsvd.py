@@ -5,7 +5,10 @@ The port's inner ``_..._from_omega`` functions get the Gaussian matrix the
 JAX function drew from its key. Range bases are compared by projector
 (Householder and eigenvector signs may differ between the two LAPACK
 paths). Tolerances: singular values rtol 1e-5 (f32) / 1e-10 (f64);
-reconstruction errors within 1e-6 of the JAX package's.
+reconstruction errors within 1e-6 of the JAX package's. The JAX side (its
+results and draws) comes from ``tests/torch_refs/test_torch_rsvd.npz``
+(``make_refs.py``), but for ``orthonormalize`` and ``max_col_norm``,
+which run live.
 """
 
 import jax
@@ -16,9 +19,11 @@ import pytest
 import rusty_compression_tpu as rc
 from test_torch_parity import (jax_gaussian, low_rank, n, port,  # noqa: F401
                                projector, t)
+from torch_refs import Refs
 
 RTOL = {np.float32: 1e-5, np.float64: 1e-10}
 SHAPE = (60, 40)
+refs = Refs(__file__)
 
 
 @pytest.mark.parametrize("dtype,power_iters", [(np.float32, 2)])
@@ -26,13 +31,18 @@ def test_range_finder_given_the_jax_omega(port, dtype, power_iters):
     from rusty_compression_tpu_torch.sampling import _range_finder_from_omega
 
     a = low_rank(20, SHAPE, 1e-4, dtype)
-    key = jax.random.key(21)
-    want = jax.jit(lambda x, k: rc.range_finder(x, k, 12, power_iters))(
-        jnp.asarray(a), key)
-    omega = jax_gaussian(key, (SHAPE[1], 12), dtype)
-    got = _range_finder_from_omega(port.rt.DenseOperator(t(a)), t(omega),
-                                   power_iters)
-    np.testing.assert_allclose(projector(n(got)), projector(np.asarray(want)),
+
+    def jax_side():
+        key = jax.random.key(21)
+        q = jax.jit(lambda x, k: rc.range_finder(x, k, 12, power_iters))(
+            jnp.asarray(a), key)
+        return {"q": q, "omega": jax_gaussian(key, (SHAPE[1], 12), dtype)}
+
+    want = refs(f"range finder {np.dtype(dtype).name} {power_iters}", a,
+                jax_side)
+    got = _range_finder_from_omega(port.rt.DenseOperator(t(a)),
+                                   t(want["omega"]), power_iters)
+    np.testing.assert_allclose(projector(n(got)), projector(want["q"]),
                                atol=10 * RTOL[dtype])
 
 
@@ -54,9 +64,10 @@ def test_compute_svd_matches_jax(port, method, dtype):
     """f64 for gram: it squares the condition number, so f32 singular
     values near 1e-2 carry ~1e-3 relative eigensolver noise."""
     a = low_rank(23, (12, 40), 1e-2, dtype)
-    _, js, _ = rc.compute_svd(jnp.asarray(a), method=method)
+    js = refs(f"compute_svd {method}", a, lambda: {
+        "s": rc.compute_svd(jnp.asarray(a), method=method)[1]})["s"]
     u, s, vt = port.rt.compute_svd(t(a), method=method)
-    np.testing.assert_allclose(n(s), np.asarray(js), rtol=RTOL[dtype])
+    np.testing.assert_allclose(n(s), js, rtol=RTOL[dtype])
     np.testing.assert_allclose(n(u * s[None, :] @ vt), a,
                                atol=100 * RTOL[dtype])
 
@@ -69,27 +80,32 @@ def test_rsvd_block_given_the_jax_omega(port, small_svd):
     from rusty_compression_tpu.parallel.batch import rsvd_block
 
     a = low_rank(24, SHAPE, 1e-4, np.float32)
-    key = jax.random.key(25)
-    want = jax.jit(lambda x, k: rsvd_block(x, k, 10, oversample=4,
-                                           power_iters=1,
-                                           small_svd=small_svd))(
-        jnp.asarray(a), key)
-    omega = jax_gaussian(key, (SHAPE[1], 14), np.float32)
-    got = _rsvd_block_from_omega(t(a), t(omega), 10, power_iters=1,
+
+    def jax_side():
+        key = jax.random.key(25)
+        out = jax.jit(lambda x, k: rsvd_block(x, k, 10, oversample=4,
+                                              power_iters=1,
+                                              small_svd=small_svd))(
+            jnp.asarray(a), key)
+        return {"s": out.s,
+                "err": rc.rel_diff_fro(out.to_mat(), jnp.asarray(a)),
+                "omega": jax_gaussian(key, (SHAPE[1], 14), np.float32)}
+
+    want = refs(f"rsvd block {small_svd}", a, jax_side)
+    got = _rsvd_block_from_omega(t(a), t(want["omega"]), 10, power_iters=1,
                                  small_svd=small_svd)
-    np.testing.assert_allclose(n(got.s), np.asarray(want.s),
-                               rtol=RTOL[np.float32])
+    np.testing.assert_allclose(n(got.s), want["s"], rtol=RTOL[np.float32])
     err = float(port.rt.rel_diff_fro(got.to_mat(), t(a)))
-    jerr = float(rc.rel_diff_fro(want.to_mat(), jnp.asarray(a)))
-    assert abs(err - jerr) <= 1e-6
+    assert abs(err - float(want["err"])) <= 1e-6
 
 
 def test_svd_tolerance_matches_jax(port):
     a = low_rank(26, SHAPE, 1e-8, np.float64)
-    want = rc.SVD.compute_from(jnp.asarray(a)).compress_svd_tolerance(1e-4)
+    want = refs("svd tolerance", a, lambda: {"s": rc.SVD.compute_from(
+        jnp.asarray(a)).compress_svd_tolerance(1e-4).s})
     got = port.rt.SVD.compute_from(t(a)).compress_svd_tolerance(1e-4)
-    assert got.rank == want.rank
-    np.testing.assert_allclose(n(got.s), np.asarray(want.s), rtol=1e-10)
+    assert got.rank == want["s"].shape[0]
+    np.testing.assert_allclose(n(got.s), want["s"], rtol=1e-10)
     with pytest.raises(port.rt.CompressionError):
         got.compress_svd_tolerance(1e-9)
 
@@ -137,7 +153,8 @@ def test_nsqb_matches_jax(port, dtype, shape):
         y = y + 1j * rng.standard_normal(y.shape)
     y = (y * np.geomspace(1.0, 1e-1, 12) * 37.0).astype(dtype)
     fn = jax.vmap(jax_nsqb) if y.ndim == 3 else jax_nsqb
-    want = np.asarray(fn(jnp.asarray(y)))
+    want = refs(f"nsqb {np.dtype(dtype).name} {shape}", y, lambda: {
+        "q": fn(jnp.asarray(y))})["q"]
     got = n(nsqb(t(y)))
     tol = 1e-9 if dtype == np.float64 else 1e-4
     np.testing.assert_allclose(got, want, atol=tol)
@@ -160,12 +177,16 @@ def test_range_finder_knobs_match_jax(port, knobs):
     from rusty_compression_tpu_torch.sampling import _range_finder_from_omega
 
     a = low_rank(31, SHAPE, 1e-4, np.float64)
-    key = jax.random.key(32)
-    want = rc.range_finder(jnp.asarray(a), key, 12, 2, **knobs)
-    omega = jax_gaussian(key, (SHAPE[1], 12), np.float64)
-    got = _range_finder_from_omega(port.rt.DenseOperator(t(a)), t(omega), 2,
-                                   **knobs)
-    np.testing.assert_allclose(projector(n(got)), projector(np.asarray(want)),
+
+    def jax_side():
+        key = jax.random.key(32)
+        return {"q": rc.range_finder(jnp.asarray(a), key, 12, 2, **knobs),
+                "omega": jax_gaussian(key, (SHAPE[1], 12), np.float64)}
+
+    want = refs(f"knobs {sorted(knobs.items())}", a, jax_side)
+    got = _range_finder_from_omega(port.rt.DenseOperator(t(a)),
+                                   t(want["omega"]), 2, **knobs)
+    np.testing.assert_allclose(projector(n(got)), projector(want["q"]),
                                atol=1e-9)
 
 
@@ -216,19 +237,26 @@ def test_power_iteration_given_the_jax_omega(port, it_count):
         _sample_range_power_iteration_from_omega)
 
     a = low_rank(34, SHAPE, 1e-3, np.float64)
-    key = jax.random.key(35)
-    want = np.asarray(rc.sample_range_power_iteration(
-        jnp.asarray(a), key, k=8, p=5, it_count=it_count))
-    omega = jax_gaussian(key, (SHAPE[1], 13), np.float64)
+
+    def jax_side():
+        key = jax.random.key(35)
+        out = {"q": rc.sample_range_power_iteration(
+            jnp.asarray(a), key, k=8, p=5, it_count=it_count),
+            "omega": jax_gaussian(key, (SHAPE[1], 13), np.float64)}
+        if it_count == 0:
+            out["by_rank"] = rc.sample_range_by_rank(jnp.asarray(a), key,
+                                                     k=8, p=5)
+        return out
+
+    stored = refs(f"power iteration {it_count}", a, jax_side)
+    want = stored["q"]
     got = n(_sample_range_power_iteration_from_omega(
-        port.rt.DenseOperator(t(a)), t(omega), 8, it_count))
+        port.rt.DenseOperator(t(a)), t(stored["omega"]), 8, it_count))
     assert got.shape == want.shape == (SHAPE[0], 8)
     np.testing.assert_allclose(projector(got), projector(want), atol=1e-9)
     np.testing.assert_allclose(np.abs(got), np.abs(want), atol=1e-9)
     if it_count == 0:  # reduces to sample_range_by_rank
-        by_rank = np.asarray(rc.sample_range_by_rank(jnp.asarray(a), key,
-                                                     k=8, p=5))
-        np.testing.assert_allclose(got, by_rank, atol=1e-12)
+        np.testing.assert_allclose(got, stored["by_rank"], atol=1e-12)
 
 
 def test_power_iteration_improves_a_slow_spectrum(port):
