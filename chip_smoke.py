@@ -119,8 +119,26 @@ raises, and the script exits non-zero without its result line):
     their recorded residual, at most 2 % of the blocks on a fallback; then
     the manifest's last 100 rows deleted and ``--resume``: exactly those
     100 blocks re-run, ``load_block_results`` one row per block.
+24. The multi-card layer (the twin of ``__graft_entry__.dryrun_multichip``):
+    ``make_mesh()`` over every card (NCCL; world size 1 on one card):
+    ``compress_blocks(mesh=)`` with ``rsvd`` and ``column_id`` on eight
+    2048^2 Laplace blocks at rank 16 (and ``column_id`` on four 1024^2 c64
+    blocks: K2), ``compress_blocks_adaptive(mesh=)``
+    on four 2048^2 blocks of phase 14's decays, ``refined_rsvd_fused_batch
+    (mesh=)`` on phase 17's stack (fixed rounds and growth), phase 22's 64
+    blocks through ``compress_heterogeneous(mesh=)`` (blocks/s beside the
+    unsharded stream's), each bitwise the unsharded call; phase 23's
+    volume through ``cli.main([..., "--mesh"])`` with ``--resume``; a
+    16384^2 f32 block as a ``RowShardedOperator`` through
+    ``sample_range_by_rank`` and ``SVD.compute_from_range_estimate``, its
+    error the dense route's to 1e-3. Then two NCCL ranks on ``cuda:0``
+    (NCCL refuses a card twice) and two Gloo ranks on ``cuda:0``
+    (``--split-rank``, killed after 240 s) on a smaller stack and stream,
+    held against one rank's results by the rule written in
+    ``phase_mesh``; the K1 shapes the two ranks launched are held against
+    the plain version after the phase.
 
-Both launch counts are set to 0 just before each of phases 3-23 and read
+Both launch counts are set to 0 just before each of phases 3-24 and read
 just after it; a kernel that a phase's path must run and that it launched
 no time fails the run. Every panel shape that a phase launched has to be
 one that phase 2 held against the plain version; a shape whose size
@@ -136,8 +154,8 @@ a column-pivoted QR (``torch.linalg.qr`` does not pivot), so
 ``library_ms`` is null for both kernels.
 
 ``--profile`` also runs ``torch.profiler`` over six warm calls of each of
-phases 3-21 (three of the ID stream of 22 and of a 128-block refined
-stream of 23) and prints, per phase, the wall time per call with the
+phases 3-21 (three of the ID stream of 22, of a 128-block refined stream
+of 23 and of the ID stream on the mesh of 24) and prints, per phase, the wall time per call with the
 tracing on, the device-busy time, the idle share and the device time by
 kernel name.
 """
@@ -1445,10 +1463,11 @@ class FallbackTally(logging.Handler):
         self.logger.setLevel(self.level)
 
 
-def phase_volume(torch, rt, gen, count: int):
+def phase_volume(torch, rt, gen, count: int, phase: str = "23-volume-1e-8",
+                 extra: tuple = ()):
     """``count`` f64 Laplace blocks (sides 64-512) as ``.npy`` files through
-    ``cli.main(--tol 1e-8 --highacc)``; the last 100 manifest rows deleted
-    and the stream resumed."""
+    ``cli.main(--tol 1e-8 --highacc, *extra)``; the last 100 manifest rows
+    deleted and the stream resumed."""
     import contextlib
     import io as stdio
     import json as _json
@@ -1479,14 +1498,15 @@ def phase_volume(torch, rt, gen, count: int):
                 np.save(os.path.join(src, f"block_{i:05d}.npy"), b)
         metrics = os.path.join(work, "metrics.jsonl")
 
-        def run(*extra):
+        def run(*args):
             out = stdio.StringIO()
             reads = ha._read.count
             tally = FallbackTally()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(out), tally:
                 rc = cli.main([src, "-o", ckpt, "--tol", "1e-8",
-                               "--highacc", "--metrics", metrics, *extra])
+                               "--highacc", "--metrics", metrics, *extra,
+                               *args])
             torch.cuda.synchronize()
             check(rc == 0, f"cli.main returned {rc}")
             check(tally.streams == 1, f"{tally.streams} refined streams ran")
@@ -1532,7 +1552,7 @@ def phase_volume(torch, rt, gen, count: int):
         loaded = rcio.load_block_results(ckpt, device="cuda")
         check([r["block"] for r in loaded] == list(range(count)),
               "load_block_results does not give each block once")
-        say("23-volume-1e-8", blocks=count,
+        say(phase, blocks=count, cli_extra=list(extra),
             gbytes=sum(m * n * 8 for m, n in sides) / 1e9,
             seconds=seconds, blocks_per_s=count / seconds,
             resumed_blocks=100, resumed_seconds=r_seconds,
@@ -1555,6 +1575,402 @@ def phase_volume(torch, rt, gen, count: int):
                                        scheduler.plan_buckets(shapes), 1,
                                        256 << 20, True))
     return run
+
+
+# ---------------------------------------------------------------------------
+# Phase 24: the multi-card layer (the port's twin of dryrun_multichip)
+# ---------------------------------------------------------------------------
+
+SPLIT_DEADLINE_S = 240
+
+
+def split_inputs(torch, rt, gen) -> dict:
+    """The smaller stack and stream that two ranks split on one card."""
+    import numpy as np
+
+    stack, _ = config_1hb_stack(torch)
+    return {"blocks": laplace_blocks(torch, gen, 8, 1024).cpu(),
+            "adaptive": torch.stack([decaying_block(torch, rt, gen, 1024, r)
+                                     for r in (24, 36, 48, 60)]).cpu(),
+            "refined": stack.cpu(),
+            "stream": stream_blocks(torch, gen, np.random.default_rng(24)
+                                    .integers(512, 2049, (16, 2)),
+                                    torch.float32),
+            "rows": decaying_block(torch, rt, gen, 4096, 48).cpu()}
+
+
+def split_calls(torch, rt, inputs: dict, mesh) -> dict:
+    """Every sharded route on ``inputs``, gathered on every rank as host
+    numpy; the same calls give the one-rank results and the two ranks'."""
+    import numpy as np
+
+    from rusty_compression_tpu_torch import parallel as par
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    blocks = inputs["blocks"].cuda()
+    out = {m: par.gather_factors(par.compress_blocks(
+        blocks, gen(1), 16, method=m, mesh=mesh), mesh).__dict__
+        for m in ("rsvd", "column_id")}
+    svd, ranks, hist = par.gather_factors(par.compress_blocks_adaptive(
+        inputs["adaptive"].cuda(), gen(2), 1e-3, 8, 64, mesh=mesh), mesh)
+    out["adaptive"] = {**svd.__dict__, "ranks": ranks, "hist": hist}
+    for name, kw in (("refined_fixed", dict(round_rank=56, tol=1e-8)),
+                     ("refined_growth", dict(tol=1e-8))):
+        outs = par.gather_factors(rt.refined_rsvd_fused_batch(
+            inputs["refined"].cuda(), gen(3), mesh=mesh, **kw), mesh)
+        out[name] = {"ranks": np.array([o.rank for o in outs]),
+                     "tol_ok": np.array([o.tol_ok for o in outs]),
+                     **{f"{f}{i}": getattr(o, f) for i, o in enumerate(outs)
+                        for f in ("u", "s", "vt")}}
+    # chunks padded to an even count at one rank too: the same chunks
+    res = par.compress_heterogeneous(inputs["stream"], gen(4), rank=16,
+                                     method="sketched_two_sided_id",
+                                     mesh=mesh, batch_granule=2)
+    out["stream"] = {f"{f}{r.index}": getattr(r.factors, f).numpy()
+                     for r in res for f in ("c", "x", "r", "row_ind",
+                                            "col_ind")}
+    out["stream"]["errs"] = np.array([r.rel_residual for r in res])
+    a = inputs["rows"].cuda()
+    op = par.RowShardedOperator(a, mesh, "blocks")
+    q = rt.sample_range_by_rank(op, gen(5), 16, 5)
+    svd = rt.SVD.compute_from_range_estimate(q, op)
+    out["rows"] = {"s": svd.s.cpu().numpy(), "err": np.array(
+        float(rt.rel_diff_fro(svd.to_mat(), a)))}
+    return out
+
+
+def split_worker(argv) -> int:
+    """One of the two ranks on ``cuda:0`` (``--split-rank R WORK BACKEND``):
+    joins the group through ``WORK/store``, runs ``split_calls`` on
+    ``WORK/inputs.pt`` and writes ``WORK/rank<R>.pt``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    import rusty_compression_tpu_torch as rt
+    from rusty_compression_tpu_torch import parallel as par
+    from rusty_compression_tpu_torch.ops.kernels import qrcp as k1
+
+    i = argv.index("--split-rank")
+    rank, work, backend = int(argv[i + 1]), argv[i + 2], argv[i + 3]
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(backend, init_method=f"file://{work}/store",
+                            world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = par.make_mesh()
+        inputs = torch.load(f"{work}/inputs.pt", weights_only=False)
+        out = split_calls(torch, rt, inputs, mesh)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    torch.save({"out": out if rank == 0 else None,
+                "launches": k1.qrcp_panel.launch_count,
+                "shapes": sorted(k1.qrcp_panel.launched_shapes)},
+               f"{work}/rank{rank}.pt")
+    return 0
+
+
+def nccl_probe_worker(argv) -> int:
+    """One of two NCCL ranks on ``cuda:0`` (``--nccl-probe R WORK``): one
+    ``all_reduce``; NCCL is expected to refuse two ranks on one card."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    i = argv.index("--nccl-probe")
+    rank, work = int(argv[i + 1]), argv[i + 2]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{work}/probe",
+                            world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=30))
+    try:
+        x = torch.ones(4, device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        return 0 if float(x[0]) == 2.0 else 1
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_two(flag: str, work: str, *rest, deadline: float) -> list:
+    """This script twice as ranks 0 and 1 (``flag R WORK *rest``); killed
+    at ``deadline`` seconds. Returns ``(returncode, output)`` per rank
+    (returncode None when killed)."""
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, flag, str(r), work, *rest],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(2)]
+    t0, out = time.perf_counter(), []
+    try:
+        for p in procs:
+            left = max(deadline - (time.perf_counter() - t0), 1.0)
+            try:
+                log = p.communicate(timeout=left)[0].decode()
+                out.append((p.returncode, log))
+            except subprocess.TimeoutExpired:
+                out.append((None, "killed at the deadline"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return out
+
+
+def same_arrays(got: dict, want: dict) -> dict:
+    """``bitwise``: all arrays bitwise equal; ``max_rel_diff``: the largest
+    entrywise difference relative to the largest entry of its array
+    (infinite where a shape or an integer differs), at ``worst_key``."""
+    bitwise, worst, at = True, 0.0, None
+    for key, w in want.items():
+        g = got[key]
+        diff = math.inf
+        if g.shape == w.shape:
+            bitwise &= bool((g == w).all())
+            if w.dtype.kind in "fc":
+                scale = float(abs(w).max()) if w.size else 1.0
+                diff = float(abs(g - w).max()) / (scale or 1.0) \
+                    if w.size else 0.0
+            else:
+                diff = 0.0 if (g == w).all() else math.inf
+        else:
+            bitwise = False
+        if at is None or diff > worst:
+            worst, at = diff, key
+    return {"bitwise": bitwise, "max_rel_diff": worst, "worst_key": at}
+
+
+def phase_mesh(torch, rt, k1, gen, volume: int):
+    """The multi-card layer on the card, as ``dryrun_multichip`` drives it
+    on the TPU: ``make_mesh()`` over every card (NCCL), the sharded stack
+    (rank and adaptive), the refined batch, both streams (the ID stream
+    and the CLI's refined stream with ``--resume``) and the row-sharded
+    operator, each against the unsharded route; then two ranks that split
+    one card (``split_calls``). The JAX package's stub of a
+    complex-rejecting backend has no twin: the card takes complex dtypes
+    (``rusty_compression_tpu_torch/utils/__init__.py``)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from rusty_compression_tpu_torch import parallel as par
+
+    mesh = par.make_mesh()
+    world = dist.get_world_size()
+    check(world == torch.cuda.device_count(),
+          f"world size {world} != {torch.cuda.device_count()} cards")
+    say("24-mesh-group", world_size=world, backend=dist.get_backend(),
+        mesh=list(mesh.mesh.shape), axes=list(mesh.mesh_dim_names))
+
+    # the stack: cell 5's eight 2048^2 Laplace blocks at rank 16
+    blocks = laplace_blocks(torch, gen, 8, 2048)
+    for method in ("rsvd", "column_id"):
+        twin = same_state(gen)
+        before = k1.qrcp_panel.launch_count
+        t0 = time.perf_counter()
+        got = par.compress_blocks(blocks, gen, 16, method=method, mesh=mesh)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = k1.qrcp_panel.launch_count - before
+        want = par.compress_blocks(blocks, twin, 16, method=method)
+        check(all(torch.equal(getattr(got, f.name), getattr(want, f.name))
+                  for f in dataclasses.fields(want)),
+              f"compress_blocks({method}, mesh=) is not the unsharded call")
+        gathered = par.gather_factors(got, mesh)
+        check(all(np.array_equal(getattr(gathered, f.name),
+                                 getattr(want, f.name).cpu().numpy())
+                  for f in dataclasses.fields(want)),
+              f"gather_factors({method}) is not the factors")
+        check((launches > 0) == (method == "column_id"),
+              f"compress_blocks({method}, mesh=): {launches} K1 launches")
+        errs = par.batched_rel_diff_fro(got, blocks)
+        say("24-mesh-stack", method=method, blocks=[8, 2048, 2048], rank=16,
+            bitwise_unsharded=True, k1_launches=launches,
+            max_rel_err=float(errs.max()), ms=seconds * 1e3)
+
+    # a c64 stack (real and imaginary parts two Laplace stacks) through the
+    # column ID: K2 on the rank's shard
+    cblocks = torch.complex(laplace_blocks(torch, gen, 4, 1024),
+                            laplace_blocks(torch, gen, 4, 1024))
+    twin = same_state(gen)
+    before = k1.qrcp_panel_complex.launch_count
+    got = par.compress_blocks(cblocks, gen, 16, method="column_id",
+                              mesh=mesh)
+    torch.cuda.synchronize()
+    launches = k1.qrcp_panel_complex.launch_count - before
+    want = par.compress_blocks(cblocks, twin, 16, method="column_id")
+    check(all(torch.equal(getattr(got, f.name), getattr(want, f.name))
+              for f in dataclasses.fields(want)) and launches > 0,
+          f"compress_blocks(c64 column_id, mesh=): not the unsharded call, "
+          f"or {launches} K2 launches")
+    errs = par.batched_rel_diff_fro(got, cblocks)
+    check(float(errs.max()) <= 5e-2, f"c64 column ID rel err "
+          f"{float(errs.max())}")
+    say("24-mesh-stack", method="column_id", dtype="complex64",
+        blocks=[4, 1024, 1024], rank=16, bitwise_unsharded=True,
+        k2_launches=launches, max_rel_err=float(errs.max()))
+
+    # the adaptive stack: phase 14's four decaying blocks
+    stack = torch.stack([decaying_block(torch, rt, gen, 2048, r)
+                         for r in (24, 36, 48, 60)])
+    twin = same_state(gen)
+    svd, ranks, _ = par.compress_blocks_adaptive(stack, gen, 1e-3, 8, 64,
+                                                 mesh=mesh)
+    want = par.compress_blocks_adaptive(stack, twin, 1e-3, 8, 64)
+    check(torch.equal(ranks, want[1]) and all(
+        torch.equal(getattr(svd, f), getattr(want[0], f))
+        for f in ("u", "s", "vt")),
+        "compress_blocks_adaptive(mesh=) is not the unsharded call")
+    errs = par.batched_rel_diff_fro(svd, stack)
+    check(float(errs.max()) <= 5e-3, f"adaptive rel err {float(errs.max())}")
+    say("24-mesh-adaptive", blocks=[4, 2048, 2048], ranks=ranks.tolist(),
+        max_rel_err=float(errs.max()), bitwise_unsharded=True)
+
+    # the refined batch: cell 17's stack, fixed rounds and growth
+    rstack, crossings = config_1hb_stack(torch)
+    for name, kw in (("fixed", dict(round_rank=56, tol=1e-8)),
+                     ("growth", dict(tol=1e-8))):
+        twin = same_state(gen)
+        outs = rt.refined_rsvd_fused_batch(rstack, gen, mesh=mesh, **kw)
+        want = rt.refined_rsvd_fused_batch(rstack, twin, **kw)
+        check(all(torch.equal(o.u, w.u) and torch.equal(o.s, w.s)
+                  for o, w in zip(outs, want)),
+              f"refined batch ({name}, mesh=) is not the unsharded call")
+        errs = check_stack(torch, f"24-mesh-refined-{name}", outs, rstack,
+                           crossings, range(8))
+        say("24-mesh-refined", mode=name, blocks=list(rstack.shape),
+            ranks=[o.rank for o in outs], max_rel_err=max(errs),
+            bitwise_unsharded=True)
+
+    # phase 22's stream: 64 f32 Laplace blocks, 5.20 GB
+    sides = np.random.default_rng(22).integers(1024, 8193, (64, 2))
+    sblocks = stream_blocks(torch, gen, sides, torch.float32)
+    line = {}
+    for label, kw in (("unsharded", {}), ("mesh", {"mesh": mesh})):
+        g = torch.Generator(device="cuda").manual_seed(2222)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = par.compress_heterogeneous(sblocks, g, rank=16,
+                                         method="sketched_two_sided_id", **kw)
+        torch.cuda.synchronize()
+        line[label] = (res, time.perf_counter() - t0)
+    (res, secs), (want, w_secs) = line["mesh"], line["unsharded"]
+    check([r.index for r in res] == list(range(64)) and all(
+        (x.rank, x.rel_residual) == (y.rank, y.rel_residual) and all(
+            torch.equal(getattr(x.factors, f), getattr(y.factors, f))
+            for f in ("c", "x", "r", "row_ind", "col_ind"))
+        for x, y in zip(res, want)),
+        "the stream on the mesh is not the unsharded stream")
+    worst = max(r.rel_residual for r in res)
+    check(worst <= 5e-3, f"mesh stream rel err {worst}")
+    say("24-mesh-stream-f32", **stream_line(res, sblocks, secs),
+        unsharded_seconds=w_secs, unsharded_blocks_per_s=64 / w_secs,
+        bitwise_unsharded=True)
+    run_stream = lambda: par.compress_heterogeneous(  # noqa: E731
+        sblocks, gen, rank=16, method="sketched_two_sided_id", mesh=mesh)
+
+    # phase 23's refined stream through the CLI on the mesh, resumed
+    phase_volume(torch, rt, gen, volume, phase="24-mesh-cli-volume",
+                 extra=("--mesh",))
+    check(dist.is_initialized(), "the CLI ended the caller's group")
+
+    # one 16384^2 f32 block (1 GiB) as a row-sharded operator
+    a = laplace_blocks(torch, gen, 1, 16384)[0]
+    errs = {}
+    for label, op in (("row_sharded", par.RowShardedOperator(a, mesh,
+                                                             "blocks")),
+                      ("dense", rt.DenseOperator(a))):
+        g = torch.Generator(device="cuda").manual_seed(16384)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q = rt.sample_range_by_rank(op, g, 16, 5)
+        svd = rt.SVD.compute_from_range_estimate(q, op)
+        torch.cuda.synchronize()
+        errs[label] = (float(rt.rel_diff_fro(svd.to_mat(), a)),
+                       (time.perf_counter() - t0) * 1e3)
+    check(abs(errs["row_sharded"][0] - errs["dense"][0])
+          <= 1e-3 * errs["dense"][0],
+          f"row-sharded rel err {errs['row_sharded'][0]} against the dense "
+          f"route's {errs['dense'][0]}")
+    say("24-mesh-row-sharded", shape=[16384, 16384], rank=16,
+        rel_err=errs["row_sharded"][0], dense_rel_err=errs["dense"][0],
+        ms=errs["row_sharded"][1], dense_ms=errs["dense"][1])
+
+    # two ranks on one card
+    work = tempfile.mkdtemp(prefix="rc_split_")
+    try:
+        probe = spawn_two("--nccl-probe", work, deadline=60)
+        nccl_two = all(rc == 0 for rc, _ in probe)
+        inputs = split_inputs(torch, rt, gen)
+        torch.save(inputs, f"{work}/inputs.pt")
+        want = split_calls(torch, rt, inputs, mesh)
+        t0 = time.perf_counter()
+        ranks = spawn_two("--split-rank", work, "gloo",
+                          deadline=SPLIT_DEADLINE_S)
+        seconds = time.perf_counter() - t0
+        check(all(rc == 0 for rc, _ in ranks),
+              "the two ranks on one card failed: " + " | ".join(
+                  f"rc {rc}: {log[-1500:]}" for rc, log in ranks))
+        found = [torch.load(f"{work}/rank{r}.pt", weights_only=False)
+                 for r in range(2)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    compared = {name: same_arrays(found[0]["out"][name], w)
+                for name, w in want.items() if name != "stream"}
+    got_s, want_s = found[0]["out"]["stream"], want["stream"]
+    blocks = len(want_s["errs"])
+    compared["stream"] = {
+        "bitwise": same_arrays(got_s, want_s)["bitwise"],
+        "blocks_with_other_pivots": sum(not all(np.array_equal(
+            got_s[f"{f}{i}"], want_s[f"{f}{i}"]) for f in ("row_ind",
+                                                            "col_ind"))
+            for i in range(blocks)),
+        "max_rel_err_ratio": float(np.max(abs(got_s["errs"] - want_s["errs"])
+                                          / want_s["errs"])),
+        "max_rel_err": float(max(got_s["errs"].max(), want_s["errs"].max()))}
+    for r in range(2):
+        check(found[r]["launches"] > 0, f"split rank {r} launched no K1")
+    say("24-mesh-two-ranks-one-card", backend="gloo",
+        nccl_two_ranks_one_card="accepted" if nccl_two else "refused",
+        nccl_probe=[log.strip().splitlines()[-1:] for _, log in probe],
+        seconds=seconds, k1_launches=[f["launches"] for f in found],
+        k1_shapes=[[list(s), k, m] for s, k, m in found[0]["shapes"]],
+        compared=compared)
+    # The rule: bitwise where each rank's kernels are the one rank's (the
+    # stack's rSVD and column ID, the refined fixed rounds); elsewhere a
+    # rank's batched kernels see another batch count (cuBLAS and cuSOLVER
+    # may pick other kernels, a batch of one takes the unbatched ones),
+    # its growth stops with its own lanes, or it multiplies half the
+    # rows: ranks equal and factors within 1e-6 of the largest entry
+    # (adaptive stack, f32; refined growth, f64), 1e-5 (the row-sharded
+    # SVD, f32); the ID stream may pick another pivot at a near tie (a
+    # block's residual then moves as from one sketch draw to another), so
+    # every block of both runs meets the stream's gate, 5e-3, and the
+    # blocks with other pivots are counted.
+    exact = ("rsvd", "column_id", "refined_fixed")
+    loose = {"adaptive": 1e-6, "refined_growth": 1e-6, "rows": 1e-5}
+    for name, c in compared.items():
+        if name == "stream":
+            ok = c["max_rel_err"] <= 5e-3
+        elif name in exact:
+            ok = c["bitwise"]
+        else:
+            ok = c["max_rel_diff"] <= loose[name]
+        check(ok, f"two ranks on one card: {name} differs from one rank "
+                  f"({c})")
+    # the ranks' K1 shapes, held against the plain version after the phase
+    run_stream.held_after = {"qrcp_panel": sorted(
+        set(found[0]["shapes"]) | set(found[1]["shapes"]))}
+    return run_stream
 
 
 def profile(torch, name: str, run, calls: int = 5) -> None:
@@ -1594,6 +2010,10 @@ def profile(torch, name: str, run, calls: int = 5) -> None:
 
 
 def main(argv) -> int:
+    if "--split-rank" in argv:
+        return split_worker(argv)
+    if "--nccl-probe" in argv:
+        return nccl_probe_worker(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -1616,7 +2036,7 @@ def main(argv) -> int:
     # `late` says which of a phase's K1 shapes have a size that its data
     # decides; phase 2 holds those right after the phase, outside the count.
     gens = {seed: torch.Generator(device="cuda").manual_seed(seed)
-            for seed in range(6, 24)}
+            for seed in range(6, 25)}
     volume = int(argv[argv.index("--volume") + 1]) if "--volume" in argv \
         else 1024
     no_late = lambda shape, k, masked: False  # noqa: E731
@@ -1675,6 +2095,11 @@ def main(argv) -> int:
          lambda: phase_block_stream(torch, rt, k1, gens[22])),
         ("23-volume-1e-8", None, no_late,
          lambda: phase_volume(torch, rt, gens[23], volume)),
+        # every launch of the mesh phase is at rank 16: phase 22's stream
+        # shapes, the split's stack and stream, the row-sharded sketch's
+        # pivoted QR; phase 2 holds each new one after the phase
+        ("24-mesh", "qrcp_panel", lambda shape, k, masked: k == 16,
+         lambda: phase_mesh(torch, rt, k1, gens[24], volume)),
     ]
     launches = {name: 0 for name in KERNELS}
     for phase, must, late, drive in paths:
@@ -1693,12 +2118,21 @@ def main(argv) -> int:
         for name in KERNELS:
             launches[name] += counts[name]
             checks.hold_launched(name, late)
+            for shape, k, masked in getattr(run, "held_after", {}).get(
+                    name, ()):
+                if (shape, k, masked) not in checks.held[name]:
+                    checks.hold(name, shape if shape[0] > 1 else shape[1:],
+                                k, masked, reps=5)
         if "--profile" in argv:
             profile(torch, phase, run,
-                    calls=2 if phase.startswith(("22", "23")) else 5)
+                    calls=2 if phase.startswith(("22", "23", "24")) else 5)
         del run
         torch.cuda.empty_cache()
     kernels = checks.summary()
+    import torch.distributed as dist
+
+    if dist.is_initialized():   # the group of phase 24's mesh
+        dist.destroy_process_group()
 
     print(card)
     print(json.dumps({"kernels": [{

@@ -3,21 +3,27 @@
 Reads a directory of dense blocks (``.npy`` files, one matrix each; the
 submission order is the sorted file order) or one ``.npz`` bundle,
 compresses every block (fixed rank or tolerance) through the block stream
-of ``parallel.scheduler`` on one device, and writes a checkpoint directory
-with a ``manifest.jsonl`` (resumable: finished blocks are skipped on a
-re-run with ``--resume``).
+of ``parallel.scheduler``, and writes a checkpoint directory with a
+``manifest.jsonl`` (resumable: finished blocks are skipped on a re-run
+with ``--resume``).
 
 Usage::
 
     python -m rusty_compression_tpu_torch INPUT -o CKPT_DIR --rank 100
     python -m rusty_compression_tpu_torch INPUT -o CKPT_DIR --tol 1e-8 \\
         --highacc --metrics metrics.jsonl
+    torchrun --nproc-per-node 4 -m rusty_compression_tpu_torch INPUT \\
+        -o CKPT_DIR --rank 100 --mesh
 
-The arguments and the printed summary are the JAX package's, with
-``--device`` (default ``cuda``). Not ported: its persistent compilation
-cache and its ``JAX_PLATFORMS`` handling (nothing is compiled here, and the
-device is an argument); ``--mesh`` is refused until the multi-card layer is
-ported (ROADMAP Queue 1 item 4).
+With ``--mesh`` the stream is sharded over a ``"blocks"`` mesh of every
+process of the group (``parallel.make_mesh``): under ``torchrun`` one
+process per card, without a launcher a group of one. Every rank reads the
+inputs and, with ``--resume``, the manifest, so all agree on the pending
+blocks; only rank 0 writes checkpoints and metrics and prints. The
+arguments and the printed summary are the JAX package's, with ``--device``
+(default ``cuda``). Not ported: its persistent compilation cache and its
+``JAX_PLATFORMS`` handling (nothing is compiled here, and the device is an
+argument).
 """
 
 from __future__ import annotations
@@ -77,8 +83,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--round-rank", type=int, default=128,
                     help="per-round capture rank of the highacc pipeline")
     ap.add_argument("--mesh", action="store_true",
-                    help="shard block batches over all local devices "
-                         "(not ported: ROADMAP Queue 1 item 4)")
+                    help="shard block batches over every process of the "
+                         "group, one card each (start N processes with "
+                         "torchrun --nproc-per-node N)")
     ap.add_argument("--bucket-floor", type=int, default=128)
     ap.add_argument("--chunk-bytes", type=int, default=1 << 30,
                     help="host-memory budget per packed input stack; each "
@@ -101,14 +108,32 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: sharding the stream over devices is not ported yet "
-            "(ROADMAP Queue 1 item 4: mesh / sharded / distributed)")
     if args.highacc and args.tol is None:
         raise SystemExit("--highacc requires --tol")
 
     import torch
+    import torch.distributed as dist
+
+    device = torch.device(args.device)
+    made_group = args.mesh and not dist.is_initialized()
+    try:
+        mesh = None
+        if args.mesh:
+            from .parallel import initialize, make_mesh
+
+            initialize(device_type=device.type)
+            mesh = make_mesh(device_type=device.type)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        return _run(args, device, mesh)
+    finally:
+        if made_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args, device, mesh) -> int:
+    import torch
+    import torch.distributed as dist
 
     if os.environ.get("RC_CHUNK_LOG"):
         import logging
@@ -124,17 +149,23 @@ def main(argv=None) -> int:
                                      compress_heterogeneous_refined)
     from .utils.precision import matmul_precision
 
+    lead = mesh is None or dist.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
+    if mesh is not None:
+        say(f"mesh: {dist.get_world_size()} ranks over 'blocks'")
     blocks = _load_blocks(args.input)
     n_total = len(blocks)
     indices = list(range(n_total))
     if args.resume:
         pending = rcio.pending_blocks(args.output, n_total)
+        if mesh is not None:  # every rank has read the manifest
+            dist.barrier()
         if not pending:
-            print(f"all {n_total} blocks already done in {args.output}")
+            say(f"all {n_total} blocks already done in {args.output}")
             return 0
         indices = pending
         blocks = [blocks[i] for i in indices]
-        print(f"resuming: {len(indices)}/{n_total} blocks pending")
+        say(f"resuming: {len(indices)}/{n_total} blocks pending")
 
     # Incremental checkpoint: every block is saved as its chunk is
     # collected, so a crash loses at most the chunks in flight and
@@ -143,21 +174,24 @@ def main(argv=None) -> int:
         os.path.join(args.output, "manifest.jsonl"))}
 
     def on_result(r):
+        if not lead:
+            return
         if indices != list(range(len(indices))):
             r = dataclasses.replace(r, index=indices[r.index])
         rcio.save_block_results(args.output, [r], append=state["append"])
         state["append"] = True
 
-    generator = torch.Generator(device=args.device).manual_seed(args.seed)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
     if args.highacc:
         results = compress_heterogeneous_refined(
             blocks, generator, rel_tol=args.tol, round_rank=args.round_rank,
             bucket_floor=args.bucket_floor, chunk_bytes=args.chunk_bytes,
-            window=args.window, on_result=on_result)
-        return _finish(args, results, indices)
+            window=args.window, on_result=on_result, mesh=mesh)
+        return _finish(args, results, indices, lead)
 
     kwargs: dict = dict(bucket_floor=args.bucket_floor,
-                        chunk_bytes=args.chunk_bytes, window=args.window)
+                        chunk_bytes=args.chunk_bytes, window=args.window,
+                        mesh=mesh)
     if args.tol is not None:
         kwargs.update(rel_tol=args.tol, sample_size=args.sample_size)
     else:
@@ -172,11 +206,14 @@ def main(argv=None) -> int:
     with matmul_precision(args.precision):
         results = compress_heterogeneous(blocks, generator,
                                          on_result=on_result, **kwargs)
-    return _finish(args, results, indices)
+    return _finish(args, results, indices, lead)
 
 
-def _finish(args, results, indices) -> int:
+def _finish(args, results, indices, lead: bool) -> int:
     from .utils.logging import MetricsLogger
+
+    if not lead:  # rank 0 writes and prints for the group
+        return 0
 
     # the original submission indices of a resumed sub-list (factors and
     # manifest rows were already written by on_result)

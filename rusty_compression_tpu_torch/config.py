@@ -112,6 +112,15 @@ def compress(target: Any, generator: torch.Generator,
     ``generator`` draws every Gaussian matrix and lives on the target's
     device; a numpy or ``scipy.sparse`` target is put on the generator's
     device.
+
+    ``mesh`` (``parallel.make_mesh``) shards a stack or a list over its
+    ``"blocks"`` axis, one process per card: every rank passes the same
+    target and a generator in the same state. A stack returns the rank's
+    slice (``parallel.gather_factors`` makes it whole; with ``highacc`` the
+    list of the slice's ``RefinedSVD``s), a list the whole list of
+    ``BlockResult``s on every rank. One matrix or operator is not sharded
+    by a mesh (a ``parallel.RowShardedOperator`` splits its rows), and
+    passing one with a mesh raises.
     """
     from .parallel import compress_blocks, compress_blocks_adaptive
     from .parallel.batch import (_adaptive_rsvd_sliced, column_id_block,
@@ -128,8 +137,14 @@ def compress(target: Any, generator: torch.Generator,
     if c.precision is not None:
         common["precision"] = c.precision
 
+    if mesh is not None and not isinstance(target, (list, tuple)) and (
+            hasattr(target, "matmat") or np.ndim(target) != 3):
+        raise ValueError(
+            "mesh= shards a (B, m, n) stack or a list of blocks over "
+            "'blocks'; one matrix or operator runs on one card (a "
+            "parallel.RowShardedOperator splits its rows over a mesh)")
     if c.highacc:
-        return _compress_highacc(target, generator, c)
+        return _compress_highacc(target, generator, c, mesh)
 
     if isinstance(target, (list, tuple)):
         from .parallel.scheduler import compress_heterogeneous
@@ -201,7 +216,7 @@ def compress(target: Any, generator: torch.Generator,
 
 
 def _compress_highacc(target: Any, generator: torch.Generator,
-                      c: CompressionConfig):
+                      c: CompressionConfig, mesh=None):
     """The tol <= 1e-8 pipeline (``highacc.refined_rsvd``, native f64/c128).
 
     Dense targets only: its residual rounds need the matrix entries. One
@@ -211,15 +226,26 @@ def _compress_highacc(target: Any, generator: torch.Generator,
     ``BlockResult``s.
     ``c.oversample`` (the reference's p = 5) is not forwarded, as in the
     JAX package: the refined pipeline keeps its own default (10).
+
+    On a ``mesh`` (which the JAX package's highacc route ignores) a list
+    goes through the refined stream on the mesh; a stack's blocks are dealt
+    over ``"blocks"``, each with the generator it gets unsharded, and the
+    rank returns its slice's results.
     """
-    from .highacc import refined_rsvd, refined_rsvd_batch
+    from .highacc import _spawn, refined_rsvd, refined_rsvd_batch
+    from .parallel.mesh import _shard_range
     from .parallel.scheduler import compress_heterogeneous_refined
 
     rk = int(c.round_rank if c.round_rank is not None else c.rank)
     if isinstance(target, (list, tuple)):
         return compress_heterogeneous_refined(
             target, generator, rel_tol=c.rel_tol, round_rank=rk,
-            bucket_floor=c.bucket_floor)
+            bucket_floor=c.bucket_floor, mesh=mesh)
+    if mesh is not None:
+        lo, hi = _shard_range(len(target), mesh, "blocks")
+        gens = _spawn(generator, len(target))[lo:hi]
+        return [refined_rsvd(b, g, round_rank=rk, tol=c.rel_tol)
+                for b, g in zip(target[lo:hi], gens)]
     if hasattr(target, "matmat"):
         raise ValueError(
             "highacc needs dense matrix entries (its residual rounds form "

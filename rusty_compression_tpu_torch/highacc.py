@@ -68,6 +68,7 @@ the last round.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -75,7 +76,7 @@ import torch
 
 from .linop import DenseOperator, LinearOperator
 from .models.svd import SVD
-from .parallel.mesh import _refuse_mesh
+from .parallel.mesh import _sharded
 from .sampling import _range_finder_from_omega
 from .utils.errors import CompressionError
 from .utils.random_matrix import random_gaussian
@@ -506,6 +507,7 @@ def refined_fused_batch_begin(blocks, generator: torch.Generator,
                               tol: float | None = None, oversample: int = 10,
                               power_iters: int = 1, refine_rounds: int = 1,
                               round_rank: int | None = None, mesh=None,
+                              axis: str = "blocks",
                               on_unreachable: str = "raise",
                               growth_block: int = 64) -> dict:
     """Capture a (B, m, n) stack and return a handle for
@@ -516,30 +518,41 @@ def refined_fused_batch_begin(blocks, generator: torch.Generator,
     cap // rounds`` columns (``rounds = max(cap // min(growth_block, cap //
     2), 2)``), freezing each lane whose residual crossed, with one host read
     a round. Each round draws one Gaussian matrix per block from
-    ``generator``. ``mesh`` is not ported (ROADMAP Queue 1 item 4).
+    ``generator``.
+
+    With ``mesh``, every rank passes the whole stack and a generator in the
+    same state; each captures the blocks of its slice over ``axis`` (``B``
+    must divide by the axis size; the scheduler pads its chunks) on its own
+    card, drawing what the unsharded capture draws, with no collective: a
+    rank's growth stops when its own lanes have crossed. The handle, and
+    the finish's results, are the rank's blocks'; its core SVDs run on its
+    own host.
     """
     if on_unreachable not in ("raise", "mark"):
         raise ValueError("on_unreachable must be 'raise' or 'mark'")
-    _refuse_mesh(mesh)
+    draws = contextlib.nullcontext()
+    if mesh is not None:
+        blocks, draws = _sharded(blocks, mesh, axis)
     a = _as_wide(blocks, generator)
     nb, m, n = a.shape
     captured, histories = [False] * nb, [()] * nb
-    if rank is None and round_rank is None:
-        if tol is None:
-            raise ValueError("need rank=, round_rank=, or tol= (tol alone "
-                             "runs the batched growth capture)")
-        l, rounds = _growth_rounds(min(m, n), growth_block)
-        q, histories, captured = _grow(a, generator, tol, [l] * rounds,
-                                       power_iters)
-        mode = "growth"
-    else:
-        k = int(round_rank if round_rank is not None else rank)
-        l = min(k + int(oversample), m, n)
-        if _saturated_tall(m, n, l, refine_rounds):
-            q, mode = torch.linalg.qr(a)[0], "direct"
+    with draws:
+        if rank is None and round_rank is None:
+            if tol is None:
+                raise ValueError("need rank=, round_rank=, or tol= (tol "
+                                 "alone runs the batched growth capture)")
+            l, rounds = _growth_rounds(min(m, n), growth_block)
+            q, histories, captured = _grow(a, generator, tol, [l] * rounds,
+                                           power_iters)
+            mode = "growth"
         else:
-            q, mode = _fixed(a, generator, l, power_iters,
-                             refine_rounds), "fixed"
+            k = int(round_rank if round_rank is not None else rank)
+            l = min(k + int(oversample), m, n)
+            if _saturated_tall(m, n, l, refine_rounds):
+                q, mode = torch.linalg.qr(a)[0], "direct"
+            else:
+                q, mode = _fixed(a, generator, l, power_iters,
+                                 refine_rounds), "fixed"
     return {"mode": mode, "q": q, "b": q.mH @ a, "captured": captured,
             "histories": histories, "tol": tol, "rank": rank,
             "on_unreachable": on_unreachable}
@@ -558,6 +571,7 @@ def refined_fused_batch_finish(h: dict) -> list[RefinedSVD]:
 def refined_rsvd_fused_batch(blocks, generator: torch.Generator,
                              **kwargs) -> list[RefinedSVD]:
     """The tol-1e-8 pipeline over a same-shape (B, m, n) stack, one result
-    per block (see ``refined_fused_batch_begin`` for the keywords)."""
+    per block (see ``refined_fused_batch_begin`` for the keywords; on a
+    mesh, one result per block of the rank's slice)."""
     return refined_fused_batch_finish(
         refined_fused_batch_begin(blocks, generator, **kwargs))

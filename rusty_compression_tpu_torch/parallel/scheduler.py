@@ -23,11 +23,23 @@ The production workload is a stream of dense blocks of many shapes
    (``clone``: a view would keep the whole chunk alive) and returns one
    ``BlockResult`` per block **in submission order**.
 
+On a device mesh (``mesh=``, one process per card) each chunk is
+zero-padded to a multiple of the ``axis`` size (``batch_granule``) and
+every rank packs, copies, compresses, verifies and un-pads only its own
+contiguous slots of it, drawing what the unsharded chunk draws; the
+chunk's ``BlockResult``s are then gathered over ``axis`` (one
+``all_gather_object``), so that every rank returns the same list (but for
+its own ``wall_time_s`` / ``device_time_s``) and calls ``on_result`` for
+every block. Padding slots are never packed from a block, never gated and
+never returned. The refined stream's fallbacks run on the rank that owns
+the block, from that block's own results.
+
 Each chunk draws from a generator of its own, seeded from the caller's in
 chunk order before any chunk runs (and each block of the refined stream
 gets two more for its fallbacks), so the results are a function of the
 seed alone, whatever ``window`` is. Nothing is compiled, so a bucket's
-last chunk holds just the blocks that are left.
+last chunk holds just the blocks that are left (padded to a multiple of
+the granule, on a mesh).
 
 Not ported from the JAX scheduler, and why:
 
@@ -59,6 +71,7 @@ Not ported from the JAX scheduler, and why:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import time
@@ -70,8 +83,10 @@ import torch
 from .. import highacc as _ha  # highacc imports parallel.mesh: bind late
 from ..models.svd import SVD
 from ..utils.errors import CompressionError
+from ..utils.random_matrix import sharded_draws
 from .batch import _adaptive_rsvd_sliced
-from .mesh import _refuse_mesh, compress_blocks
+from .distributed import gather_factors
+from .mesh import _axis_size, _shard_range, compress_blocks
 
 #: per-chunk stage timings and per-block fallbacks; the CLI turns them on
 #: with RC_CHUNK_LOG=1
@@ -242,7 +257,8 @@ class _Packer:
     """Zero-padded chunk stacks on the device. Host blocks (numpy arrays,
     memmaps, CPU tensors) bound for a card go through a pinned host buffer,
     one per window slot and reused, and a copy that does not block; a slot
-    is refilled only after the copy out of it has finished."""
+    is refilled only after the copy out of it has finished. A slot index
+    of -1 is a padding block (zeros)."""
 
     def __init__(self, device: torch.device, window: int):
         self.device = device
@@ -253,13 +269,15 @@ class _Packer:
     def pack(self, blocks, shapes, idxs, bm: int, bn: int,
              dtype: torch.dtype) -> torch.Tensor:
         host = [not (isinstance(blocks[i], torch.Tensor)
-                     and blocks[i].device.type != "cpu") for i in idxs]
+                     and blocks[i].device.type != "cpu")
+                for i in idxs if i >= 0]
         if self.device.type == "cpu" or not all(host):
             stack = torch.zeros((len(idxs), bm, bn), dtype=dtype,
                                 device=self.device)
             for slot, i in enumerate(idxs):
-                m, n = shapes[i]
-                stack[slot, :m, :n] = _as_tensor(blocks[i])
+                if i >= 0:
+                    m, n = shapes[i]
+                    stack[slot, :m, :n] = _as_tensor(blocks[i])
             return stack
         slot = self.count % len(self.slots)
         self.count += 1
@@ -273,6 +291,9 @@ class _Packer:
         view = buf[:nbytes].view(dtype).view(len(idxs), bm, bn)
         arr = view.numpy()
         for s, i in enumerate(idxs):
+            if i < 0:
+                arr[s] = 0
+                continue
             m, n = shapes[i]
             b = blocks[i]
             arr[s, :m, :n] = b.numpy() if isinstance(b, torch.Tensor) else b
@@ -296,11 +317,13 @@ def _as_tensor(b) -> torch.Tensor:
 def _masked_rel_err(rec: torch.Tensor, stack: torch.Tensor, shapes,
                     idxs) -> torch.Tensor:
     """Relative Frobenius error of each block's (m, n) frame (the padding
-    of ``stack`` is zero; that of ``rec`` is left out)."""
+    of ``stack`` is zero; that of ``rec`` is left out; a padding slot, -1,
+    has an empty frame)."""
     bm, bn = stack.shape[-2:]
     dev = stack.device
-    ms = torch.tensor([shapes[i][0] for i in idxs], device=dev)
-    ns = torch.tensor([shapes[i][1] for i in idxs], device=dev)
+    dims = [shapes[i] if i >= 0 else (0, 0) for i in idxs]
+    ms = torch.tensor([m for m, _ in dims], device=dev)
+    ns = torch.tensor([n for _, n in dims], device=dev)
     keep = ((torch.arange(bm, device=dev) < ms[:, None])[:, :, None]
             & (torch.arange(bn, device=dev) < ns[:, None])[:, None, :])
     diff = torch.where(keep, rec - stack, 0)
@@ -341,6 +364,42 @@ def _chunks(blocks, shapes, groups, granule: int, chunk_bytes: int,
         for lo in range(0, len(idxs), cb):
             chunks.append((bm, bn, idxs[lo:lo + cb], dtype))
     return chunks
+
+
+def _slots(idxs, granule: int, mesh, axis: str):
+    """``(slots, draws)``: this rank's slots of a chunk padded to a multiple
+    of ``granule`` (submission indices, -1 for a padding block) and the
+    context its draws run in (the whole padded chunk's draws, see
+    ``utils.random_matrix.sharded_draws``)."""
+    slots = list(idxs) + [-1] * (_batch_bucket(len(idxs), granule)
+                                 - len(idxs))
+    if mesh is None:
+        return slots, contextlib.nullcontext()
+    lo, hi = _shard_range(len(slots), mesh, axis)
+    return slots[lo:hi], sharded_draws(lo, hi, len(slots))
+
+
+def _gather_results(local: list, mesh, axis: str) -> list:
+    """A chunk's ``BlockResult``s (with any per-block extras) from every
+    rank of ``axis``, in slot order; the factors come back as host
+    tensors."""
+    if mesh is None:
+        return local
+    return [_with_tensors(item) for item in gather_factors(local, mesh, axis)]
+
+
+def _with_tensors(x):
+    """The numpy leaves of a gathered item as tensors."""
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(x)
+    if isinstance(x, BlockResult):
+        return dataclasses.replace(x, factors=_with_tensors(x.factors))
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return type(x)(**{f.name: _with_tensors(getattr(x, f.name))
+                          for f in dataclasses.fields(x)})
+    if isinstance(x, tuple):
+        return tuple(_with_tensors(v) for v in x)
+    return x
 
 
 def _run_window(chunks, dispatch, collect, window: int) -> None:
@@ -384,18 +443,21 @@ def compress_heterogeneous(blocks: Sequence, generator: torch.Generator,
     flight; ``on_result`` is called once for each block as its chunk is
     collected. Extra keywords go to the batched pipeline
     (``parallel.mesh.compress_blocks``; tolerance mode: ``max_rank``,
-    ``ortho``, ``small_svd``, ``precision``). ``mesh`` is not ported
-    (ROADMAP Queue 1 item 4).
+    ``ortho``, ``small_svd``, ``precision``). Chunks are zero-padded to a
+    multiple of ``batch_granule`` (default: the ``axis`` size of ``mesh``,
+    else 1). With ``mesh``, every rank passes the same blocks and a
+    generator in the same state on its own card, and gets the same results
+    (see the module docstring).
     """
     if (rank is None) == (rel_tol is None):
         raise ValueError("pass exactly one of rank= or rel_tol=")
-    _refuse_mesh(mesh)
     shapes = _shapes(blocks)
     if rank is not None:
         for s in shapes:
             if rank > min(s):
                 raise ValueError(f"rank {rank} exceeds min dim of block {s}")
-    granule = 1 if batch_granule is None else int(batch_granule)
+    granule = int(batch_granule) if batch_granule is not None else (
+        _axis_size(mesh, axis) if mesh is not None else 1)
 
     from .. import native as _native
 
@@ -411,27 +473,29 @@ def compress_heterogeneous(blocks: Sequence, generator: torch.Generator,
     def dispatch(ci, bm, bn, idxs, dtype):
         """Pack and enqueue one chunk (the device runs asynchronously)."""
         t_pack = time.perf_counter()
-        stack = packer.pack(blocks, shapes, idxs, bm, bn, dtype)
+        slots, draws = _slots(idxs, granule, mesh, axis)
+        stack = packer.pack(blocks, shapes, slots, bm, bn, dtype)
         t0 = time.perf_counter()
         gen = _generator(seeds[ci], device)
-        if rel_tol is not None:
-            # the stack's SVD at its largest rank, not at the cap: the
-            # stream slices each block to its rank anyway
-            factors, ranks, _ = _adaptive_rsvd_sliced(
-                stack, gen, rel_tol, sample_size, **kwargs)
-        else:
-            factors = compress_blocks(stack, gen, rank, method=method,
-                                      **kwargs)
-            ranks = torch.full((len(idxs),), int(rank), device=device)
-        errs = _masked_rel_err(factors.to_mat(), stack, shapes, idxs)
+        with draws:
+            if rel_tol is not None:
+                # the stack's SVD at its largest rank, not at the cap: the
+                # stream slices each block to its rank anyway
+                factors, ranks, _ = _adaptive_rsvd_sliced(
+                    stack, gen, rel_tol, sample_size, **kwargs)
+            else:
+                factors = compress_blocks(stack, gen, rank, method=method,
+                                          **kwargs)
+                ranks = torch.full((len(slots),), int(rank), device=device)
+        errs = _masked_rel_err(factors.to_mat(), stack, shapes, slots)
         t_enq = time.perf_counter()
-        return (bm, bn, idxs, factors, ranks, errs, t_pack, t0, t_enq)
+        return (bm, bn, idxs, slots, factors, ranks, errs, t_pack, t0, t_enq)
 
     prev_ready = [0.0]
 
     def collect(work):
         """Fetch one chunk's results (one read), un-pad them in place."""
-        bm, bn, idxs, factors, ranks, errs, t_pack, t0, t_enq = work
+        bm, bn, idxs, slots, factors, ranks, errs, t_pack, t0, t_enq = work
         errs, ranks = _ha._read(errs, ranks)
         host = _to_host(factors)
         t_ready = time.perf_counter()
@@ -441,7 +505,10 @@ def compress_heterogeneous(blocks: Sequence, generator: torch.Generator,
         _chunk_log.info("chunk bucket=(%d,%d) n=%d pack=%.3fs enq=%.3fs "
                         "finish=%.3fs", bm, bn, len(idxs), t0 - t_pack,
                         t_enq - t0, t_ready - t_enq)
-        for slot, i in enumerate(idxs):
+        local = []
+        for slot, i in enumerate(slots):
+            if i < 0:
+                continue
             m, n = shapes[i]
             r_i = int(ranks[slot])
             if rel_tol is not None:  # the padded SVD sliced to the rank
@@ -450,12 +517,14 @@ def compress_heterogeneous(blocks: Sequence, generator: torch.Generator,
                           host.vt[slot, :r_i, :n].clone())
             else:
                 fac = _unpad_factors(host, slot, m, n, method)
-            results[i] = BlockResult(
+            local.append(BlockResult(
                 index=i, shape=(m, n), bucket=(bm, bn), rank=r_i,
                 rel_residual=float(errs[slot]), wall_time_s=per_block,
-                factors=fac, device_time_s=dev_block)
+                factors=fac, device_time_s=dev_block))
+        for r in _gather_results(local, mesh, axis):
+            results[r.index] = r
             if on_result is not None:
-                on_result(results[i])
+                on_result(r)
 
     t_start = time.perf_counter()
     _run_window(chunks, dispatch, collect, window)
@@ -524,15 +593,16 @@ def compress_heterogeneous_refined(blocks: Sequence,
 
     Returns ``BlockResult``s in submission order; ``factors`` is an ``SVD``
     of host f64 / c128 tensors. Extra keywords (``oversample``,
-    ``power_iters``, ``refine_rounds``) go to the pipeline. ``mesh`` is not
-    ported (ROADMAP Queue 1 item 4).
+    ``power_iters``, ``refine_rounds``) go to the pipeline. With ``mesh``,
+    chunks are zero-padded to a multiple of the ``axis`` size and every
+    rank gets the same results (see the module docstring).
     """
-    _refuse_mesh(mesh)
     shapes = _shapes(blocks)
     growth = round_rank is None
     device = generator.device
-    chunks = _chunks(blocks, shapes, plan_buckets(shapes, bucket_floor), 1,
-                     chunk_bytes, True)
+    granule = _axis_size(mesh, axis) if mesh is not None else 1
+    chunks = _chunks(blocks, shapes, plan_buckets(shapes, bucket_floor),
+                     granule, chunk_bytes, True)
     seeds = _seeds(generator, len(chunks) + 2 * len(shapes))
     block_seeds = seeds[len(chunks):]
     packer = _Packer(device, window)
@@ -545,21 +615,24 @@ def compress_heterogeneous_refined(blocks: Sequence,
 
     def dispatch(ci, bm, bn, idxs, dtype):
         t_pack = time.perf_counter()
-        stack = packer.pack(blocks, shapes, idxs, bm, bn, dtype)
+        slots, draws = _slots(idxs, granule, mesh, axis)
+        stack = packer.pack(blocks, shapes, slots, bm, bn, dtype)
         t0 = time.perf_counter()
-        h = _ha.refined_fused_batch_begin(
-            stack, _generator(seeds[ci], device), tol=rel_tol,
-            on_unreachable="mark", **mode_kw, **kwargs)
+        with draws:
+            h = _ha.refined_fused_batch_begin(
+                stack, _generator(seeds[ci], device), tol=rel_tol,
+                on_unreachable="mark", **mode_kw, **kwargs)
         t_enq = time.perf_counter()
-        return (h, stack, idxs, bm, bn, t_pack, t0, t_enq)
+        return (h, stack, idxs, slots, bm, bn, t_pack, t0, t_enq)
 
     prev_ready = [0.0]
 
     def collect(work):
-        h, stack, idxs, bm, bn, t_pack, t0, t_enq = work
+        h, stack, idxs, slots, bm, bn, t_pack, t0, t_enq = work
         outs = _ha.refined_fused_batch_finish(h)
         svd = _padded_svd(outs, bm, bn, stack.device, stack.dtype)
-        errs = _ha._read(_masked_rel_err(svd.to_mat(), stack, shapes, idxs))[0]
+        errs = _ha._read(_masked_rel_err(svd.to_mat(), stack, shapes,
+                                         slots))[0]
         host = _to_host(svd)
         t_ready = time.perf_counter()
         wall = (t_ready - t0) / len(idxs)
@@ -568,12 +641,16 @@ def compress_heterogeneous_refined(blocks: Sequence,
         _chunk_log.info("chunk bucket=(%d,%d) n=%d mode=%s pack=%.3fs "
                         "enq=%.3fs finish=%.3fs", bm, bn, len(idxs),
                         h["mode"], t0 - t_pack, t_enq - t0, t_ready - t_enq)
-        for slot, i in enumerate(idxs):
+        local = []
+        for slot, i in enumerate(slots):
+            if i < 0:
+                continue
             m, n = shapes[i]
             out, err = outs[slot], errs[slot]
             err = err if np.isfinite(err) else np.inf
             factors = None
             failure, w, dev_w = None, wall, dev_block
+            took = dict.fromkeys(fallbacks, 0)
             # a cut at or beyond the block's own min dim lies in the
             # padding: the tolerance was not reached inside the block
             if not growth and _reached(out, m, n) and \
@@ -592,7 +669,7 @@ def compress_heterogeneous_refined(blocks: Sequence,
                     pass  # the growth fallback decides
                 w += time.perf_counter() - t_f
                 dev_w += time.perf_counter() - t_f
-                fallbacks["fixed"] += 1
+                took["fixed"] = 1
             if not _reached(out, m, n) or err > _gate(out, rel_tol):
                 # second fallback: the growth capture discovers the rank
                 t_g = time.perf_counter()
@@ -610,13 +687,13 @@ def compress_heterogeneous_refined(blocks: Sequence,
                 err = out.residual_fro(b)
                 w += time.perf_counter() - t_g
                 dev_w += time.perf_counter() - t_g
-                fallbacks["growth"] += 1
+                took["growth"] = 1
             if out is not outs[slot]:
-                fallbacks["blocks"] += 1
+                took["blocks"] = 1
                 factors = SVD(out.u.cpu(), out.s.cpu(), out.vt.cpu())
             opt = _opt(out)
             if err > opt + max(2 * rel_tol, 0.1 * opt):
-                fallbacks["above_soft_margin"] += 1
+                took["above_soft_margin"] = 1
             if failure is None and err > _gate(out, rel_tol):
                 failure = (f"residual {err:.3e} missed the max(5x{rel_tol:g}, "
                            f"{OPT_SLACK}x optimal) gate after the fixed-round "
@@ -626,12 +703,16 @@ def compress_heterogeneous_refined(blocks: Sequence,
                 factors = SVD(host.u[slot, :m, :k].clone(),
                               host.s[slot, :k].clone(),
                               host.vt[slot, :k, :n].clone())
-            results[i] = BlockResult(
+            local.append((BlockResult(
                 index=i, shape=(m, n), bucket=(bm, bn), rank=out.rank,
                 rel_residual=float(err), wall_time_s=w, factors=factors,
-                device_time_s=dev_w, error=failure)
+                device_time_s=dev_w, error=failure), took))
+        for r, took in _gather_results(local, mesh, axis):
+            for key, count in took.items():
+                fallbacks[key] += count
+            results[r.index] = r
             if on_result is not None:
-                on_result(results[i])
+                on_result(r)
 
     t_start = time.perf_counter()
     _run_window(chunks, dispatch, collect, window)

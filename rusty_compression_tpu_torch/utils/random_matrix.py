@@ -5,10 +5,20 @@ synthetic approximately-low-rank fixture with a geometrically spaced
 spectrum. An explicit ``torch.Generator`` takes the place of the JAX
 package's keys; the two give different numbers from the same seed, so
 tests that compare the packages feed both the same numpy-made matrices.
+
+Inside ``sharded_draws(lo, hi, total)`` (a block stack sharded over a
+device mesh, ``parallel.mesh``) every draw is of a local stack of ``hi -
+lo`` blocks: ``random_gaussian`` draws what the whole stack of ``total``
+blocks would, in the same order and shape, and keeps blocks ``lo:hi``.
+Each rank's generator so advances as the unsharded call's does, and a
+rank's blocks get the very matrices they get unsharded: sketches are
+derived on every rank, not broadcast.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -21,6 +31,31 @@ __all__ = [
     "random_approximate_low_rank_matrix",
 ]
 
+#: ``(lo, hi, total)`` of the block shard being computed, or None
+_SHARD: contextvars.ContextVar = contextvars.ContextVar("block_shard",
+                                                        default=None)
+
+
+@contextlib.contextmanager
+def sharded_draws(lo: int, hi: int, total: int):
+    """Draws of a stack's blocks ``lo:hi`` out of ``total`` (see the module
+    docstring)."""
+    token = _SHARD.set((int(lo), int(hi), int(total)))
+    try:
+        yield
+    finally:
+        _SHARD.reset(token)
+
+
+def _draw(generator: torch.Generator, shape, dtype: torch.dtype,
+          device) -> torch.Tensor:
+    if dtype.is_complex:
+        rdt = real_dtype(dtype)
+        re = torch.randn(shape, generator=generator, dtype=rdt, device=device)
+        im = torch.randn(shape, generator=generator, dtype=rdt, device=device)
+        return torch.complex(re, im)
+    return torch.randn(shape, generator=generator, dtype=dtype, device=device)
+
 
 def random_gaussian(generator: torch.Generator, shape,
                     dtype: torch.dtype = torch.float64,
@@ -32,12 +67,17 @@ def random_gaussian(generator: torch.Generator, shape,
     in the JAX package (entries of variance 2).
     """
     device = generator.device if device is None else device
-    if dtype.is_complex:
-        rdt = real_dtype(dtype)
-        re = torch.randn(shape, generator=generator, dtype=rdt, device=device)
-        im = torch.randn(shape, generator=generator, dtype=rdt, device=device)
-        return torch.complex(re, im)
-    return torch.randn(shape, generator=generator, dtype=dtype, device=device)
+    shard = _SHARD.get()
+    if shard is None:
+        return _draw(generator, shape, dtype, device)
+    lo, hi, total = shard
+    shape = tuple(shape)
+    if len(shape) < 3 or shape[0] != hi - lo:
+        raise ValueError(
+            f"a draw of shape {shape} inside a block shard of {hi - lo} "
+            "blocks: every draw of a sharded stack must lead with its "
+            "block axis")
+    return _draw(generator, (total, *shape[1:]), dtype, device)[lo:hi]
 
 
 def random_orthogonal_matrix(generator: torch.Generator, shape,

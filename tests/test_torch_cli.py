@@ -135,9 +135,23 @@ def test_arguments_match_the_jax_cli(port):
 
 
 def test_mesh_and_highacc_without_tol_are_refused(port, blocks):
+    """``--mesh`` is no longer refused: with no launcher it runs on a group
+    of one rank (made and destroyed by ``main``) and writes the checkpoint
+    of the run without it. ``--highacc`` without ``--tol`` is refused."""
+    import torch.distributed as dist
+
     tmp, _ = blocks
-    with pytest.raises(NotImplementedError, match="item 4"):
-        run(port, tmp / "blocks", "-o", tmp / "c", "--rank", "4", "--mesh")
+    for ckpt, extra in (("c", ["--mesh"]), ("plain", [])):
+        rc, printed = run(port, tmp / "blocks", "-o", tmp / ckpt, "--rank",
+                          "4", *extra)
+        assert rc == 0
+        assert ("mesh: 1 ranks over 'blocks'" in printed) == bool(extra)
+    assert not dist.is_initialized()
+    drop = ("wall_time_s", "device_time_s")
+    assert [{k: v for k, v in r.items() if k not in drop}
+            for r in manifest(tmp / "c")] == [
+        {k: v for k, v in r.items() if k not in drop}
+        for r in manifest(tmp / "plain")]
     with pytest.raises(SystemExit):
         run(port, tmp / "blocks", "-o", tmp / "c", "--rank", "4",
             "--highacc")

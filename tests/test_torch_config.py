@@ -208,8 +208,9 @@ def test_pallas_is_refused_by_name(port):
 @pytest.mark.parametrize("what", ["list", "highacc_list", "mesh_rank",
                                   "mesh_adaptive"])
 def test_later_slices_are_refused_by_name(port, what):
-    """A list of blocks takes the block stream (rank and highacc); a mesh
-    is refused by name (the multi-card layer, ROADMAP Queue 1 item 4)."""
+    """A list of blocks takes the block stream (rank and highacc); a stack
+    on a mesh (once refused) takes the sharded call: on a group of one
+    rank, bitwise the call without a mesh."""
     torch, rt = port.torch, port.rt
     a = t(low_rank(126, SHAPE, 1e-6, np.float64))
     g = torch.Generator()
@@ -234,14 +235,21 @@ def test_later_slices_are_refused_by_name(port, what):
             opt = np.sqrt((s[k:] ** 2).sum() / (s ** 2).sum())
             assert err <= (2 * opt if what == "list" else 5e-8)
         return
-    call = {
-        "mesh_rank": lambda: rt.compress(torch.stack([a, a]), g, rank,
-                                         mesh=object()),
-        "mesh_adaptive": lambda: rt.compress(torch.stack([a, a]), g,
-                                             adaptive, mesh=object()),
-    }[what]
-    with pytest.raises(NotImplementedError, match="item 4"):
-        call()
+    from rusty_compression_tpu_torch.parallel import gather_factors
+    from test_torch_parity import one_rank_mesh
+
+    cfg = rank if what == "mesh_rank" else adaptive
+    stack = torch.stack([a, a])
+    with one_rank_mesh() as mesh:
+        got = gather_factors(rt.compress(stack, g.manual_seed(1), cfg,
+                                         mesh=mesh), mesh)
+    want = gather_factors(rt.compress(stack, g.manual_seed(1), cfg))
+    if what == "mesh_adaptive":
+        (got, *got_rest), (want, *want_rest) = got, want
+        for x, y in zip(got_rest, want_rest):
+            np.testing.assert_array_equal(x, y)
+    for name in ("u", "s", "vt"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(want, name))
 
 
 def test_compress_blocks_checks(port):
@@ -369,21 +377,45 @@ def test_compress_equals_the_direct_calls(port):
 
 
 def test_exported_names_against_the_jax_package(port):
-    """Every public name of the JAX package is exported by the port, but
-    for the layers that later slices port; the gaps are named here."""
+    """Every public name of the JAX package is exported by the port, the
+    multi-card layer's and ``utils.mfu``'s too; no gap is left."""
     from rusty_compression_tpu import parallel as jpar
+    from rusty_compression_tpu.utils import mfu as jmfu
 
     from rusty_compression_tpu_torch import parallel
+    from rusty_compression_tpu_torch.utils import mfu
 
     still_to_port: set = set()
     assert set(rc.__all__) - set(port.rt.__all__) == still_to_port
     assert set(port.rt.__all__) <= set(rc.__all__)
     for name in port.rt.__all__:
         assert hasattr(port.rt, name), name
-    parallel_gaps = {  # the multi-card layer (ROADMAP Queue 1 item 4)
-        "make_mesh", "shard_blocks", "replicate", "RowShardedOperator",
-        "initialize", "global_mesh", "local_block_slice", "gather_factors"}
+    parallel_gaps: set = set()
     assert set(jpar.__all__) - set(parallel.__all__) == parallel_gaps
+    assert set(jpar.__all__) == set(parallel.__all__)
+    assert set(jmfu.__all__) == set(mfu.__all__)
+    for name in mfu.__all__:
+        assert hasattr(mfu, name), name
+
+
+def test_the_peak_table_holds_the_h100_alone(port):
+    """``utils.mfu`` keyed on the name the card reports: the H100 SXM's
+    data-sheet peaks by matmul precision; any other name (a TPU's, the
+    CPU's) gives None, not a figure."""
+    from rusty_compression_tpu_torch.utils import mfu
+
+    name = "NVIDIA H100 80GB HBM3"
+    assert [mfu.effective_peak_flops(name, p) for p in
+            ("highest", "high", "default")] == [67e12, 494.7e12, 989.4e12]
+    assert mfu.hbm_peak_bytes(name) == 3.35e12
+    assert mfu.mfu_pct(67e12, 2.0, name, "highest") == 50.0
+    assert mfu.hbm_util_pct(3.35e12, 1.0, name) == 100.0
+    for other in ("TPU v5 lite", "cpu", "NVIDIA H100 PCIe"):
+        assert mfu.effective_peak_flops(other, "highest") is None
+        assert mfu.mfu_pct(1.0, 1.0, other, "highest") is None
+        assert mfu.hbm_util_pct(1.0, 1.0, other) is None
+    with pytest.raises(ValueError):
+        mfu.effective_peak_flops(name, "medium")
 
 
 @pytest.mark.parametrize("candidates,within",

@@ -730,3 +730,149 @@ def test_load_factors_onto_the_card(k1, tmp_path):
     back = rt.io.load_factors(path)   # device="cuda" by default
     assert back.c.device.type == "cuda" and back.col_ind.dtype == torch.int64
     assert torch.equal(back.c, cid.c) and torch.equal(back.z, cid.z)
+
+
+# ---------------------------------------------------------------------------
+# The multi-card layer on one card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def card_mesh(k1):
+    """``make_mesh()`` on the card: a group of one rank under NCCL, made in
+    this process and destroyed after the test."""
+    import torch.distributed as dist
+
+    from rusty_compression_tpu_torch.parallel import make_mesh
+
+    try:
+        yield make_mesh()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _mesh_stack(seed: int = 21, count: int = 4, side: int = 512):
+    import torch
+
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((count, side, 48)) @ (
+        np.geomspace(1, 1e-6, 48)[:, None]
+        * rng.standard_normal((count, 48, side)))
+    return torch.tensor(a, dtype=torch.float32, device="cuda")
+
+
+@pytest.mark.parametrize("call", ["rsvd", "column_id", "adaptive"])
+def test_mesh_of_one_card_is_the_unsharded_call(k1, card_mesh, call):
+    """``compress_blocks(mesh=make_mesh())`` at world size 1 under NCCL:
+    bitwise the call without a mesh; the column ID launches K1; gathering
+    is one NCCL all-gather of each factor."""
+    import torch
+
+    from rusty_compression_tpu_torch import parallel as par
+
+    blocks = _mesh_stack()
+
+    def once(mesh):
+        g = torch.Generator(device="cuda").manual_seed(3)
+        if call == "adaptive":
+            return par.compress_blocks_adaptive(blocks, g, 1e-3, 16, 64,
+                                                mesh=mesh)
+        return par.compress_blocks(blocks, g, 16, method=call, mesh=mesh)
+
+    want = par.gather_factors(once(None))
+    before = k1.qrcp_panel.launch_count
+    got = par.gather_factors(once(card_mesh), card_mesh)
+    torch.cuda.synchronize()
+    assert (k1.qrcp_panel.launch_count > before) == (call == "column_id")
+    flat = (lambda x: [*x[0].__dict__.values(), *x[1:]]) \
+        if call == "adaptive" else (lambda x: list(x.__dict__.values()))
+    for g_, w_ in zip(flat(got), flat(want)):
+        assert isinstance(g_, np.ndarray) and np.array_equal(g_, w_)
+
+
+def test_row_sharded_operator_on_one_card(k1, card_mesh):
+    """``RowShardedOperator`` over the one-rank "blocks" axis: products
+    equal the dense ones (f32, 1e-5 of the largest entry), and the rank-16
+    range sampler and SVD through it reach the dense route's error."""
+    import torch
+
+    import rusty_compression_tpu_torch as rt
+    from rusty_compression_tpu_torch import parallel as par
+
+    a = _mesh_stack(22, 1, 2048)[0]
+    op = par.RowShardedOperator(a, card_mesh, "blocks")
+    x = torch.randn(2048, 8, device="cuda")
+    for got, want in ((op.matmat(x), a @ x), (op.conj_matmat(x), a.T @ x)):
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+    errs = []
+    for target in (op, rt.DenseOperator(a)):
+        g = torch.Generator(device="cuda").manual_seed(4)
+        q = rt.sample_range_by_rank(target, g, 16, 5)
+        svd = rt.SVD.compute_from_range_estimate(q, target)
+        errs.append(float(rt.rel_diff_fro(svd.to_mat(), a)))
+    assert errs[0] == pytest.approx(errs[1], rel=1e-3)
+
+
+_TWO_RANKS = """
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+sys.path.insert(0, sys.argv[4])
+from rusty_compression_tpu_torch import parallel as par
+rank, store, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method="file://" + store,
+                        world_size=2, rank=rank)
+mesh = par.make_mesh(device_type="cuda")
+blocks = torch.load(out + "/blocks.pt").cuda()
+got = {}
+for method in ("rsvd", "column_id"):
+    g = torch.Generator(device="cuda").manual_seed(3)
+    got[method] = par.gather_factors(
+        par.compress_blocks(blocks, g, 16, method=method, mesh=mesh), mesh)
+if rank == 0:
+    np.savez(out + "/got.npz", **{f"{m}/{k}": v for m, f in got.items()
+                                  for k, v in f.__dict__.items()})
+dist.destroy_process_group()
+"""
+
+
+def test_two_ranks_on_one_card_under_gloo(k1, tmp_path):
+    """Two processes on ``cuda:0`` in a Gloo group (NCCL takes one rank per
+    card): each compresses its half of the stack on the card; gathered
+    (through the host), the factors are those of one rank, bitwise.
+    The ranks are killed after 120 s."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    import torch
+
+    from rusty_compression_tpu_torch import parallel as par
+
+    blocks = _mesh_stack()
+    torch.save(blocks.cpu(), tmp_path / "blocks.pt")
+    repo = str(Path(__file__).resolve().parents[1])
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _TWO_RANKS, str(r), str(tmp_path / "store"),
+         str(tmp_path), repo], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=120)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(p.returncode == 0 for p in procs), logs
+    with np.load(tmp_path / "got.npz") as z:
+        got = dict(z)
+    for method in ("rsvd", "column_id"):
+        g = torch.Generator(device="cuda").manual_seed(3)
+        want = par.gather_factors(par.compress_blocks(blocks, g, 16,
+                                                      method=method))
+        for k, v in want.__dict__.items():
+            assert np.array_equal(got[f"{method}/{k}"], v), (method, k)

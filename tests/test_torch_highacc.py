@@ -437,9 +437,16 @@ def test_containers_and_argument_checks(port):
     with pytest.raises(ValueError):
         ha.refined_rsvd_fused_batch(t(MARK_STACK), gen(port), tol=TOL,
                                     on_unreachable="skip")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ha.refined_rsvd_fused_batch(t(MARK_STACK), gen(port), tol=TOL,
-                                    mesh=object())
+    from test_torch_parity import one_rank_mesh
+
+    with one_rank_mesh() as mesh:  # a mesh, once refused, shards the stack
+        got = ha.refined_rsvd_fused_batch(t(MARK_STACK), gen(port), tol=TOL,
+                                          mesh=mesh, on_unreachable="mark")
+    want = ha.refined_rsvd_fused_batch(t(MARK_STACK), gen(port), tol=TOL,
+                                       on_unreachable="mark")
+    assert [(x.rank, x.tol_ok) for x in got] == [(y.rank, y.tol_ok)
+                                                 for y in want]
+    assert all(port.torch.equal(x.u, y.u) for x, y in zip(got, want))
 
 
 def test_modules_import_neither_jax_nor_the_jax_package():

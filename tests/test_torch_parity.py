@@ -12,6 +12,7 @@ and draw, so that the port's inner ``_..._from_omega`` /
 ``_..._from_sketch`` functions get the very matrix the JAX function used.
 """
 
+import contextlib
 import types
 
 import jax
@@ -87,6 +88,22 @@ def block_keys(key, count: int):
     """Per-block keys of the JAX batched entry points
     (parallel/batch.py:144)."""
     return jax.random.split(key, count)
+
+
+@contextlib.contextmanager
+def one_rank_mesh():
+    """A ``"blocks"`` mesh of one rank on the CPU (``make_mesh`` makes its
+    group from an in-process store), destroyed on exit so that it cannot
+    leak into the next test of the worker."""
+    import torch.distributed as dist
+
+    from rusty_compression_tpu_torch.parallel import make_mesh
+
+    try:
+        yield make_mesh(device_type="cpu")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def projector(q: np.ndarray) -> np.ndarray:

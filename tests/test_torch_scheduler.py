@@ -318,13 +318,23 @@ def test_stream_argument_checks(port, call, match):
 
 
 def test_mesh_is_refused_by_name(port):
+    """A mesh, once refused by name, shards both streams: on a group of one
+    rank the results are the unsharded stream's, bitwise."""
+    from test_torch_parity import one_rank_mesh
+
     s = sc(port)
-    for call in (lambda: s.compress_heterogeneous(
-            stream_blocks(), gen(port), rank=4, mesh=object()),
-            lambda: s.compress_heterogeneous_refined(
-                refined_blocks(), gen(port), mesh=object())):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            call()
+    runs = (lambda **kw: s.compress_heterogeneous(
+        stream_blocks(), gen(port), rank=4, **kw),
+        lambda **kw: s.compress_heterogeneous_refined(
+            refined_blocks(), gen(port), **kw))
+    for call in runs:
+        with one_rank_mesh() as mesh:
+            got = call(mesh=mesh)
+        want = call()
+        assert [(r.index, r.rank, r.rel_residual) for r in got] == [
+            (r.index, r.rank, r.rel_residual) for r in want]
+        assert all(port.torch.equal(x.factors.u, y.factors.u)
+                   for x, y in zip(got, want))
 
 
 def test_block_result_matches_the_jax_record(port):

@@ -36,6 +36,7 @@ FILES = [
     "test_torch_highacc.py", "test_torch_highacc_id.py",
     "test_torch_config.py", "test_torch_linop.py", "test_torch_nystrom.py",
     "test_torch_adaptive.py", "test_torch_rsvd.py", "test_torch_scheduler.py",
+    "test_torch_mesh.py",
 ]
 
 
