@@ -20,7 +20,11 @@ raises, and the script exits non-zero without its result line):
    behind a busy card (``device_ms``), beside the roofline bound of the
    shape. Then, at a small size, the one-read ID, the rSVD, the blocked
    RRQR (f32 and c64) and the complex two-sided ID on the card against
-   the same call on the CPU with the same Gaussian matrices.
+   the same call on the CPU with the same Gaussian matrices. Then the two
+   routes of phase 14's eight 2048^2 f32 blocks at k = 16: K1 forced
+   (``mode="kernel"``) and ``auto`` (the JAX package's blocked RRQR, as
+   the working set is over its 12 MiB bound), CUDA-event times of
+   ``pivoted_qr`` and ``batched_column_id`` each, both at cell 14's gates.
 3. rSVD (config 3): ``batched_rsvd`` of one 8192^2 f32 block
    G1 diag(geomspace(1, 1e-6, 400)) G2, rank 100, oversample 5, two power
    iterations, Gram small SVD; rel err <= 3 sigma_101 / sigma_1.
@@ -137,8 +141,19 @@ raises, and the script exits non-zero without its result line):
     held against one rank's results by the rule written in
     ``phase_mesh``; the K1 shapes the two ranks launched are held against
     the plain version after the phase.
+25. The twins of ``examples/*.py`` (``rusty_compression_tpu_torch.examples``)
+    through their ``run`` on the card at their default sizes, each with
+    the JAX example's gates (and, where it prints without a gate, the
+    ones ``phase_examples`` names): the interpolative decomposition, the
+    adaptive sampler, ``high_accuracy`` (2048^2, tol 1e-8),
+    ``high_accuracy_id`` (1500x500), ``complex_operators`` (1024^2 c64,
+    rank 27: K2), ``block_workload`` (eight blocks, checkpoint, block 3
+    lost and recovered) and ``hmatrix`` at 3000 points; then ``hmatrix`` at
+    32,768 points: 12,894 far-field blocks (8.3 GB f64,
+    sides up to 2048) in one tolerance stream on the card, 8,906 dense
+    blocks, the matvec within 50 tol of the dense operator.
 
-Both launch counts are set to 0 just before each of phases 3-24 and read
+Both launch counts are set to 0 just before each of phases 3-25 and read
 just after it; a kernel that a phase's path must run and that it launched
 no time fails the run. Every panel shape that a phase launched has to be
 one that phase 2 held against the plain version; a shape whose size
@@ -155,9 +170,11 @@ a column-pivoted QR (``torch.linalg.qr`` does not pivot), so
 
 ``--profile`` also runs ``torch.profiler`` over six warm calls of each of
 phases 3-21 (three of the ID stream of 22, of a 128-block refined stream
-of 23 and of the ID stream on the mesh of 24) and prints, per phase, the wall time per call with the
-tracing on, the device-busy time, the idle share and the device time by
-kernel name.
+of 23 and of the ID stream on the mesh of 24, two of the H-matrix of 25
+at each of its sizes) and prints, per phase, the wall time per call with
+the tracing on, the device-busy time, the idle share, the kernels per
+call (per chunk of a stream, per block of the H-matrix) and the device
+time by kernel name.
 """
 
 from __future__ import annotations
@@ -301,13 +318,21 @@ KERNEL_CASES = {
         ((72, 1024), 64, True),       # config 2: hilbert(1024), k = 64
         ((72, 128), 64, True),        # the same through a shortlist
         ((80, 144), 72, True),        # config 4b1t: the 72-row sketch
-        ((8, 2048, 2048), 16, False)],  # column/row ID of the stack
+        # a whole block of the stack, K1 forced: auto goes blocked there
+        # (its working set is over the JAX package's 12 MiB bound), and
+        # the route line times both
+        ((8, 2048, 2048), 16, False)],
     "qrcp_panel_complex": [
         ((53, 8192), 43, False),      # core of the 8192^2 complex ID
         ((43, 8192), 43, False), ((136, 256), 128, True),
         ((37, 301), 29, True), ((8, 24, 2048), 16, False),
         ((53, 8191), 43, True),       # ragged, residual in L2
-        ((43, 8192), 43, "slice"), ((600, 40), 8, False)],
+        ((43, 8192), 43, "slice"), ((600, 40), 8, False),
+        # the complex example at 1024^2, rank 27: the core of the planar
+        # two-sided ID, the LQ of C, the full-width pivot rule of
+        # compress(RANK(27, "two_sided_id"))'s 35-row sketch
+        ((37, 1024), 27, False), ((27, 1024), 27, False),
+        ((35, 1024), 27, True)],
 }
 
 
@@ -466,6 +491,47 @@ def phase_reference(torch, rt) -> None:
     check(err <= 1e-4, f"complex ID factors card vs CPU {err}")
     say("2-reference-complex", block=[120, 90], rank=24, pivots_equal=True,
         factor_rel_err=err)
+
+
+def phase_route(torch, gen, count: int = 8, size: int = 2048,
+                rank: int = 16) -> None:
+    """The two routes of a whole 2048^2 f32 block at k = 16 (phase 14's
+    stack): K1 forced (``mode="kernel"``, the residual in L2) and ``auto``,
+    which takes the JAX package's blocked RRQR there (the working set is
+    over its 12 MiB bound). CUDA-event medians of 10 calls, in the order
+    kernel, auto, auto, kernel; both held to cell 14's gates (rel err <=
+    5e-2, the ID's columns those of the block)."""
+    from rusty_compression_tpu_torch import parallel, pivoted_qr
+    from rusty_compression_tpu_torch.ops.pivoted_qr import _resolve_mode
+
+    blocks = laplace_blocks(torch, gen, count, size)
+    check(_resolve_mode("auto", size, size, rank, blocks.dtype,
+                        blocks.device) == "blocked",
+          "auto does not take the blocked route at a whole 2048^2 block")
+    times = {"kernel": [], "auto": []}
+    for mode in ("kernel", "auto", "auto", "kernel"):
+        def qr(mode=mode):
+            return pivoted_qr(blocks, rank, mode=mode,
+                              generator=same_state(gen))
+
+        def cid(mode=mode):
+            return parallel.batched_column_id(blocks, same_state(gen), rank,
+                                              mode=mode, block_size=128)
+
+        got = cid()
+        err = float(parallel.batched_rel_diff_fro(got, blocks).max())
+        cols = torch.take_along_dim(blocks, got.col_ind[:, None, :rank],
+                                    dim=-1)
+        col_err = float((got.c - cols).abs().max() / cols.abs().max())
+        check(math.isfinite(err) and err <= 5e-2 and col_err <= 1e-4,
+              f"column ID ({mode}) rel err {err}, columns {col_err}")
+        times[mode].append({"pivoted_qr_ms": event_ms(qr),
+                            "column_id_ms": event_ms(cid),
+                            "max_rel_err": err, "column_err": col_err})
+    say("2-route-2048", blocks=[count, size, size], rank=rank,
+        auto_resolves_to=_resolve_mode("auto", size, size, rank,
+                                       blocks.dtype, blocks.device),
+        kernel=times["kernel"], auto=times["auto"])
 
 
 def phase_rsvd(torch, rt, gen):
@@ -1973,11 +2039,153 @@ def phase_mesh(torch, rt, k1, gen, volume: int):
     return run_stream
 
 
+# ---------------------------------------------------------------------------
+# Phase 25: the twins of examples/*.py
+# ---------------------------------------------------------------------------
+
+#: the H-matrix's sizes (the example's default, then the card's) and the
+#: (admissible, dense) blocks of ``examples/hmatrix.py``'s partition there
+HMATRIX_BLOCKS = {3000: (1220, 1100), 32768: (12894, 8906)}
+
+
+def hmatrix_line(out: dict, seconds: float) -> dict:
+    ranks = out["ranks"]
+    return {"n_points": out["n_points"], "wall_seconds": seconds,
+            "admissible": out["admissible"], "dense": out["dense"],
+            "far_gbytes": out["far_bytes"] / 1e9,
+            "far_max_side": out["far_max_side"],
+            "stream_seconds": out["stream_seconds"],
+            "stream_blocks_per_s": out["admissible"] / out["stream_seconds"],
+            "stream_gbps": out["far_bytes"] / out["stream_seconds"] / 1e9,
+            "ranks_min_median_max": [min(ranks), int(statistics.median(ranks)),
+                                     max(ranks)],
+            "max_rel_residual": out["max_rel_residual"],
+            "dense_bytes": out["dense_bytes"], "h_bytes": out["h_bytes"],
+            "compression_ratio": out["dense_bytes"] / out["h_bytes"],
+            "matvec_rel_err": out["matvec_rel_err"],
+            **{k: out[k] for k in ("partition_seconds", "far_build_seconds",
+                                   "near_build_seconds", "matvec_seconds",
+                                   "reference_seconds")}}
+
+
+def phase_examples(torch):
+    """The seven twins of ``examples/*.py`` through their ``run`` on the
+    card at their default sizes, then the H-matrix at 32,768 points: one
+    line each with its wall time and the numbers it checks. Each twin's
+    own gates raise; the examples that print without a gate are held here
+    (the ID's skeleton to 1e-12 and its error to 10 sigma_21; the adaptive
+    sampler's last estimate below tol and the QR's error within 5 tol)."""
+    import importlib
+    import io
+    import shutil
+    import tempfile
+
+    def twin(name):
+        return importlib.import_module(
+            f"rusty_compression_tpu_torch.examples.{name}")
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    dev = torch.device("cuda")
+    m = twin("interpolative_decomposition")
+    out, sec = timed(lambda: m.run(m.make_input(dev), gen(0)))
+    check(out["skeleton_err"] <= 1e-12
+          and out["two_sided_rel_err"] <= 10 * out["sigma_next"],
+          f"interpolative_decomposition: {out}")
+    say("25-examples", example="interpolative_decomposition", wall_seconds=sec,
+        **{k: out[k] for k in ("qr_rel_err", "column_id_rel_err",
+                               "two_sided_rel_err", "skeleton_err",
+                               "sigma_next")})
+
+    m = twin("adaptive_sampling")
+    out, sec = timed(lambda: m.run(m.make_input(dev), gen(1)))
+    check(out["estimated"][-1] < m.REL_TOL
+          and out["qr_rel_err"] <= 5 * m.REL_TOL,
+          f"adaptive_sampling: {out}")
+    say("25-examples", example="adaptive_sampling", wall_seconds=sec,
+        rank=out["rank"], blocks=out["blocks"],
+        last_estimate=out["estimated"][-1], last_exact=out["exact"][-1],
+        qr_rel_err=out["qr_rel_err"])
+
+    m = twin("high_accuracy")
+    a, sig = m.make_input()
+    out, sec = timed(lambda: m.run(a, sig, gen(0)))
+    say("25-examples", example="high_accuracy", wall_seconds=sec,
+        size=m.M, **out)
+
+    m = twin("high_accuracy_id")
+    a, crossing = m.make_input()
+    out, sec = timed(lambda: m.run(a, gen(0)))
+    say("25-examples", example="high_accuracy_id", wall_seconds=sec,
+        shape=[m.M, m.N], crossing=crossing,
+        **{k: out[k] for k in ("rank", "rel_err", "skeleton_bitwise")})
+
+    m = twin("complex_operators")
+    a, sig = m.make_input()
+    out, sec = timed(lambda: m.run(a, gen(1)))
+    bound = 10 * sig[m.RANK] / sig[0]
+    check(out["skeleton_err"] <= 1e-3 and all(
+        out[k] <= bound for k in ("two_sided_rel_err", "column_id_rel_err",
+                                  "compress_two_sided_rel_err")),
+          f"complex_operators: {out} (ID gate {bound})")
+    say("25-examples", example="complex_operators", wall_seconds=sec,
+        size=m.SIZE, rank=m.RANK, id_gate=bound, **out)
+
+    m = twin("block_workload")
+    tmp = tempfile.mkdtemp(prefix="rc_chip_smoke_blocks_")
+    try:
+        log = io.StringIO()
+        out, sec = timed(lambda: m.run(m.make_blocks(0, device=dev), gen(1),
+                                       f"{tmp}/ckpt", log=log))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    records = [json.loads(line) for line in log.getvalue().splitlines()]
+    check(len(records) == out["blocks"] == 8
+          and out["max_residual"] <= 5 * m.REL_TOL,
+          f"block_workload: {len(records)} records, {out}")
+    say("25-examples", example="block_workload", wall_seconds=sec,
+        metrics_records=len(records), **out)
+
+    m = twin("hmatrix")
+    runs = {}
+    for n in HMATRIX_BLOCKS:
+        points = m.sphere_points(n)
+        x = torch.randn(n, generator=gen(2), device="cuda",
+                        dtype=torch.float64).cpu().numpy()
+        run = lambda points=points, x=x: m.run(points, x, gen(1))  # noqa: E731
+        torch.cuda.reset_peak_memory_stats()
+        out, sec = timed(run)
+        check((out["admissible"], out["dense"]) == HMATRIX_BLOCKS[n],
+              f"hmatrix at {n} points: {out['admissible']} admissible, "
+              f"{out['dense']} dense blocks, not {HMATRIX_BLOCKS[n]}")
+        say("25-examples", example="hmatrix", **hmatrix_line(out, sec),
+            peak_device_gbytes=torch.cuda.max_memory_allocated() / 1e9)
+        run.blocks = sum(HMATRIX_BLOCKS[n])
+        runs[f"25-hmatrix-{n}"] = run
+    # --profile traces the H-matrix at each size
+    first = next(iter(runs.values()))
+    first.cells = runs
+    return first
+
+
 def profile(torch, name: str, run, calls: int = 5) -> None:
     """Device-busy time, idle share and device time by kernel name over
     ``calls`` warm calls of ``run`` (torch.profiler). The wall time is taken
     inside the profiled region, so it carries the tracing's cost per
-    launch but not the profiler's start and stop."""
+    launch but not the profiler's start and stop. The device events are
+    summed by name straight from the trace's raw events (``key_averages``
+    gives the same sums, but builds an event tree first that outlasts the
+    script's limit over the millions of kernels of the largest H-matrix).
+    ``run.chunks`` / ``run.blocks``, where set, give kernels per chunk or
+    per block."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as profiler
 
     run()
@@ -1992,19 +2200,25 @@ def profile(torch, name: str, run, calls: int = 5) -> None:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / calls
     traced = calls + 1
-    rows = [(e.key, e.self_device_time_total / 1e3 / traced, e.count / traced)
-            for e in prof.key_averages()
-            if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    totals: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            ns, count = totals.get(e.name(), (0, 0))
+            totals[e.name()] = (ns + e.duration_ns(), count + 1)
+    rows = [(key, ns / 1e6 / traced, count / traced)
+            for key, (ns, count) in totals.items()]
     check(bool(rows), f"profile of {name}: no device time recorded")
     rows.sort(key=lambda row: -row[1])
     busy = sum(row[1] for row in rows)
-    per_chunk = {}
-    if getattr(run, "chunks", None):
-        per_chunk = {"chunks_per_call": run.chunks, "kernels_per_chunk": sum(
-            row[2] for row in rows) / run.chunks}
+    kernels = sum(row[2] for row in rows)
+    per_unit = {}
+    for unit in ("chunks", "blocks"):
+        if getattr(run, unit, None):
+            per_unit.update({f"{unit}_per_call": getattr(run, unit),
+                             f"kernels_per_{unit[:-1]}":
+                             kernels / getattr(run, unit)})
     say("profile", cell=name, wall_ms_per_call=wall, device_busy_ms=busy,
-        idle_share=1 - busy / wall,
-        kernels_per_call=sum(row[2] for row in rows), **per_chunk,
+        idle_share=1 - busy / wall, kernels_per_call=kernels, **per_unit,
         top=[{"kernel": key[:60], "ms": ms, "per_call": cnt}
              for key, ms, cnt in rows[:6]])
 
@@ -2028,6 +2242,7 @@ def main(argv) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = phase_kernel(torch, k1, gen)
     phase_reference(torch, rt)
+    phase_route(torch, torch.Generator(device="cuda").manual_seed(14))
 
     # The main paths: each phase with both counts at 0 just before it and
     # read just after; `must` names the kernel its path has to launch.
@@ -2100,6 +2315,9 @@ def main(argv) -> int:
         # pivoted QR; phase 2 holds each new one after the phase
         ("24-mesh", "qrcp_panel", lambda shape, k, masked: k == 16,
          lambda: phase_mesh(torch, rt, k1, gens[24], volume)),
+        # the complex example launches K2; the other twins run in f64
+        ("25-examples", "qrcp_panel_complex", no_late,
+         lambda: phase_examples(torch)),
     ]
     launches = {name: 0 for name in KERNELS}
     for phase, must, late, drive in paths:
@@ -2124,8 +2342,9 @@ def main(argv) -> int:
                     checks.hold(name, shape if shape[0] > 1 else shape[1:],
                                 k, masked, reps=5)
         if "--profile" in argv:
-            profile(torch, phase, run,
-                    calls=2 if phase.startswith(("22", "23", "24")) else 5)
+            for cell, traced in getattr(run, "cells", {phase: run}).items():
+                profile(torch, cell, traced, calls=1 if phase.startswith("25")
+                        else 2 if phase.startswith(("22", "23", "24")) else 5)
         del run
         torch.cuda.empty_cache()
     kernels = checks.summary()

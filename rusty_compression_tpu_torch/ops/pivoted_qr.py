@@ -236,12 +236,21 @@ def _full_permutation(piv: torch.Tensor, n: int) -> torch.Tensor:
     return torch.cat([piv, rest[..., :n - k]], dim=-1)
 
 
+def _working_set_fits(m: int, n: int, k: int, itemsize: int) -> bool:
+    """The JAX package's bound on a fused panel's working set
+    (``_pallas_fits``: the panel and its residual, Q, R and two norm
+    vectors under 12 MiB), at the element size of ``itemsize``."""
+    return itemsize * (2 * m * n + m * k + k * n + 2 * n) < 12 * 2**20
+
+
 def _resolve_mode(mode: str, m: int, n: int, k: int, dtype: torch.dtype,
                   device: torch.device) -> str:
     """Resolve ``"auto"`` with the JAX package's thresholds: the fused
     kernel where the JAX package picked Pallas (small rank or width, on
-    the accelerator, fits the kernel), the plain loop for f64/c128 or the
-    CPU up to n = 512, the blocked RRQR beyond.
+    the accelerator, a working set under its 12 MiB bound and a Q that
+    fits the kernel), the plain loop for f64/c128, the CPU or a larger
+    working set up to n = 512, the blocked RRQR beyond. A whole 2048^2
+    f32 block at k = 16 (32.3 MiB) goes blocked, as in the JAX package.
 
     In the small-rank branch the JAX package means the exact pivot rule
     (its 12 MB fit rule covers a 1024^2 f32 matrix at k = 64, whose Q does
@@ -258,6 +267,7 @@ def _resolve_mode(mode: str, m: int, n: int, k: int, dtype: torch.dtype,
         return mode
     if k <= 64 or n <= 128:
         if (dtype in _KERNEL_DTYPES and device.type == "cuda"
+                and _working_set_fits(m, n, k, dtype.itemsize)
                 and kernel_fits(m, k, dtype.itemsize)):
             return "kernel"
         if n <= 512:

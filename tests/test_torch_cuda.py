@@ -876,3 +876,64 @@ def test_two_ranks_on_one_card_under_gloo(k1, tmp_path):
                                                       method=method))
         for k, v in want.__dict__.items():
             assert np.array_equal(got[f"{method}/{k}"], v), (method, k)
+
+
+# ---------------------------------------------------------------------------
+# The twins of examples/*.py on the card, at small sizes
+# ---------------------------------------------------------------------------
+
+
+def _twin_on(name: str, device: str) -> dict:
+    """Twin ``name``'s ``run`` on ``device`` at a small size (the highacc
+    twins at ``RC_EXAMPLE_SMALL``'s), with the JAX example's gates."""
+    import importlib
+    import tempfile
+
+    import torch
+
+    m = importlib.import_module(f"rusty_compression_tpu_torch.examples.{name}")
+    g = torch.Generator(device=device).manual_seed(1)
+    if name in ("interpolative_decomposition", "adaptive_sampling"):
+        return m.run(m.make_input("cpu"), g)
+    if name == "high_accuracy":
+        return m.run(*m.make_input(512, 60), g, decay_rank=60)
+    if name == "high_accuracy_id":
+        return m.run(m.make_input(300, 80)[0], g)
+    if name == "complex_operators":
+        return m.run(m.make_input(256)[0], g)
+    if name == "block_workload":
+        with tempfile.TemporaryDirectory() as tmp:
+            return m.run(m.make_blocks(0), g, f"{tmp}/ckpt")
+    points = m.sphere_points(2048)
+    return m.run(points, np.random.default_rng(2).standard_normal(2048), g)
+
+
+@pytest.mark.parametrize("name", [
+    "interpolative_decomposition", "adaptive_sampling", "high_accuracy",
+    "high_accuracy_id", "complex_operators", "block_workload", "hmatrix"])
+def test_example_twin_on_the_card(k1, name):
+    """Each twin on the card passes its gates (its ``run`` raises
+    otherwise) and agrees with its run on the CPU: the ID's skeleton
+    indices equal, the discovered ranks within one sample block; the
+    complex twin launches K2."""
+    before = k1.qrcp_panel_complex.launch_count
+    got = _twin_on(name, "cuda")
+    launched = k1.qrcp_panel_complex.launch_count - before
+    want = _twin_on(name, "cpu")
+    assert (launched > 0) == (name == "complex_operators")
+    if name == "interpolative_decomposition":
+        assert np.array_equal(got["col_ind"][:20], want["col_ind"][:20])
+        assert got["two_sided_rel_err"] == pytest.approx(
+            want["two_sided_rel_err"], rel=1e-8)
+    elif name in ("adaptive_sampling", "high_accuracy", "high_accuracy_id"):
+        assert abs(got["rank"] - want["rank"]) <= 5
+    elif name == "complex_operators":
+        assert got["skeleton_err"] <= 1e-3
+        assert got["refined_residual"] <= 5e-8
+    elif name == "block_workload":
+        assert got["pending_after_loss"] == [3]
+        assert got["pending_after_recovery"] == []
+    else:
+        assert (got["admissible"], got["dense"]) == (302, 618)
+        assert np.abs(np.subtract(got["ranks"], want["ranks"])).max() <= 8
+        assert got["matvec_rel_err"] < 50e-6

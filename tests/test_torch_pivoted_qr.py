@@ -123,3 +123,43 @@ def test_resolve_mode_keeps_the_jax_thresholds(port, dtype, device, m, n_, k,
     got = _resolve_mode("auto", m, n_, k, getattr(torch, dtype),
                         torch.device(device))
     assert got == expect
+
+
+@pytest.mark.parametrize("dtype,m,n_,k", [
+    ("float32", 2048, 2048, 16),     # a whole block of the 2048^2 stack
+    ("complex64", 1024, 1024, 16),   # a whole block of a c64 stack
+])
+def test_auto_takes_the_jax_route_for_whole_blocks(port, dtype, m, n_, k):
+    """A working set over the JAX package's 12 MiB bound goes blocked on
+    the card, as ``_pallas_fits`` sends it there, though Q fits K1/K2."""
+    from rusty_compression_tpu_torch.ops.kernels.qrcp import kernel_fits
+    from rusty_compression_tpu_torch.ops.pivoted_qr import _resolve_mode
+
+    dt = getattr(port.torch, dtype)
+    assert kernel_fits(m, k, dt.itemsize)
+    assert _resolve_mode("auto", m, n_, k, dt,
+                         port.torch.device("cuda")) == "blocked"
+
+
+@pytest.mark.parametrize("dtype,m,n_,k", [
+    ("float32", 24, 16384, 16), ("float32", 16, 16384, 16),
+    ("float32", 24, 2048, 16), ("float32", 136, 256, 128),
+    ("float32", 72, 1024, 64), ("float32", 80, 144, 72),
+    ("complex64", 53, 8192, 43), ("complex64", 43, 8192, 43),
+    ("complex64", 37, 1024, 27), ("complex64", 27, 1024, 27),
+    ("complex64", 35, 1024, 27),
+])
+def test_auto_keeps_the_kernel_on_held_panels(port, dtype, m, n_, k):
+    """Every panel ``chip_smoke.py`` phase 2 holds stays on the kernel:
+    through ``_resolve_mode`` at small rank or width, else as the pivot
+    rule of the blocked RRQR's shortlist."""
+    from rusty_compression_tpu_torch.ops.pivoted_qr import (
+        _pivot_rule, _resolve_mode, _working_set_fits)
+
+    torch = port.torch
+    dt, cuda = getattr(torch, dtype), torch.device("cuda")
+    assert _working_set_fits(m, n_, k, dt.itemsize)
+    if k <= 64 or n_ <= 128:
+        assert _resolve_mode("auto", m, n_, k, dt, cuda) == "kernel"
+    else:
+        assert _pivot_rule("auto", dt, cuda, m, k) == "kernel"

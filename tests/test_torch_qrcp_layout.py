@@ -29,6 +29,7 @@ PHASE2 = [
     (24, 16389, 16, 4), (600, 40, 8, 4),
     (53, 8192, 43, 8), (43, 8192, 43, 8), (136, 256, 128, 8),
     (37, 301, 29, 8), (24, 2048, 16, 8), (53, 8191, 43, 8), (600, 40, 8, 8),
+    (37, 1024, 27, 8), (27, 1024, 27, 8), (35, 1024, 27, 8),
 ]
 GRID = PHASE2 + [
     (m, n, min(k, m, n), itemsize)

@@ -14,7 +14,8 @@ recorded on, and a test that builds other inputs cannot read it.
 import numpy as np
 import pytest
 
-from torch_refs import INPUTS, SEP, STORE, VALUES, Refs, source_hashes
+from torch_refs import (EXAMPLE_FILES, INPUTS, SEP, STORE, VALUES, Refs,
+                        example_hashes, source_hashes)
 from torch_refs.make_refs import FILES
 
 STEMS = [f[:-3] for f in FILES]
@@ -42,6 +43,17 @@ def test_stored_results_are_the_packages(stem):
     assert keys
     for key in results:  # every result names the inputs it was made on
         assert f"{key}{SEP}{INPUTS}" in keys and f"{key}{SEP}{VALUES}" in keys
+
+
+@pytest.mark.parametrize("stem", sorted(EXAMPLE_FILES))
+def test_stored_examples_are_the_programs(stem):
+    """A file that mirrors the JAX example programs was made from them as
+    they stand (the sha256 of each ``examples/*.py``)."""
+    with np.load(STORE / f"{stem}.npz", allow_pickle=False) as data:
+        stored = [str(x) for x in data["__examples__"]]
+    assert stored and stored == example_hashes(stem), (
+        f"{stem}.npz was made from other examples/*.py; rerun "
+        f"tests/torch_refs/make_refs.py {stem}.py")
 
 
 def test_the_store_is_small():

@@ -12,12 +12,14 @@ errors within 1e-6 of the JAX package's; pivots exactly equal; factors to
 1e-5 of their largest entry; skeleton to 1e-4.
 """
 
+import json
 import subprocess
 import sys
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from test_torch_parity import (assert_same_two_sided, block_keys,  # noqa: F401
                                jax_gaussian, jax_sketch, low_rank, n, port, t)
@@ -104,14 +106,41 @@ def test_public_names_mirror_the_jax_package(port):
     assert set(parallel.__all__) <= set(jpar.__all__)
 
 
-def test_import_loads_no_jax():
-    code = ("import sys, rusty_compression_tpu_torch, "
-            "rusty_compression_tpu_torch.parallel, "
-            "rusty_compression_tpu_torch.interop; "
-            "bad = [m for m in sys.modules if m == 'jax' or "
+EXAMPLE_TWINS = ("interpolative_decomposition", "adaptive_sampling",
+                 "high_accuracy", "high_accuracy_id", "complex_operators",
+                 "block_workload", "hmatrix")
+NO_JAX_IMPORTS = ["rusty_compression_tpu_torch.interop",
+                  *(f"rusty_compression_tpu_torch.examples.{name}"
+                    for name in EXAMPLE_TWINS)]
+
+
+@pytest.fixture(scope="module")
+def modules_after_import():
+    """One interpreter imports the package and its parallel layer, then
+    each of ``NO_JAX_IMPORTS`` in turn; for each, the JAX modules loaded
+    so far."""
+    code = ("import importlib, json, sys\n"
+            "def bad():\n"
+            "    return [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'rusty_compression_tpu.'))"
-            " or m == 'rusty_compression_tpu']; "
-            "print(bad); sys.exit(1 if bad else 0)")
+            " or m == 'rusty_compression_tpu']\n"
+            "import rusty_compression_tpu_torch, "
+            "rusty_compression_tpu_torch.parallel\n"
+            "out = {'package': bad()}\n"
+            f"for name in {NO_JAX_IMPORTS!r}:\n"
+            "    importlib.import_module(name)\n"
+            "    out[name] = bad()\n"
+            "print(json.dumps(out))\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+    return json.loads(proc.stdout.splitlines()[-1])
+
+
+@pytest.mark.parametrize("extra", NO_JAX_IMPORTS)
+def test_import_loads_no_jax(modules_after_import, extra):
+    """The package, its parallel layer and ``extra`` (interop, or one of
+    the twins of ``examples/*.py``) import neither JAX nor the JAX
+    package."""
+    assert modules_after_import["package"] == []
+    assert modules_after_import[extra] == []

@@ -52,6 +52,19 @@ def source_hashes() -> list[str]:
     return out
 
 
+#: the example programs whose JAX calls a stored file mirrors, by its stem
+EXAMPLE_FILES = {"test_torch_examples": sorted(
+    (STORE.parents[1] / "examples").glob("*.py"))}
+
+
+def example_hashes(stem: str) -> list[str]:
+    """``"<path> <sha256>"`` of each example program ``stem`` mirrors."""
+    root = STORE.parents[1]
+    return [f"{p.relative_to(root).as_posix()} "
+            f"{hashlib.sha256(p.read_bytes()).hexdigest()}"
+            for p in EXAMPLE_FILES.get(stem, [])]
+
+
 #: the names under a key that hold the fingerprint of the test's inputs
 INPUTS, VALUES = "@inputs", "@values"
 #: how far a fingerprint's values may move (another BLAS may round the

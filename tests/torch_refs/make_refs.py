@@ -29,19 +29,20 @@ HERE = Path(__file__).resolve().parent
 TESTS = HERE.parent
 sys.path.insert(0, str(TESTS))
 
-from torch_refs import RECORD_ENV, source_hashes  # noqa: E402
+from torch_refs import (RECORD_ENV, example_hashes,  # noqa: E402
+                        source_hashes)
 
 #: the test files whose JAX side is stored
 FILES = [
     "test_torch_highacc.py", "test_torch_highacc_id.py",
     "test_torch_config.py", "test_torch_linop.py", "test_torch_nystrom.py",
     "test_torch_adaptive.py", "test_torch_rsvd.py", "test_torch_scheduler.py",
-    "test_torch_mesh.py",
+    "test_torch_mesh.py", "test_torch_examples.py",
 ]
 
 
-def record(out_dir: Path) -> None:
-    """Run the test files in record mode and bundle their records into
+def record(out_dir: Path, files=FILES) -> None:
+    """Run the test ``files`` in record mode and bundle their records into
     ``out_dir``."""
     import jax
 
@@ -50,7 +51,7 @@ def record(out_dir: Path) -> None:
         subprocess.run(
             [sys.executable, "-m", "pytest", "-q", "-p", "no:xdist",
              "-p", "no:cacheprovider", "-p", "no:randomly",
-             *[str(TESTS / f) for f in FILES]],
+             *[str(TESTS / f) for f in files]],
             cwd=TESTS.parent, env=env, check=True)
         sources = np.asarray(source_hashes())
         for stem_dir in sorted(Path(raw).iterdir()):
@@ -58,6 +59,9 @@ def record(out_dir: Path) -> None:
             for part in sorted(stem_dir.glob("*.npz")):
                 with np.load(part, allow_pickle=False) as data:
                     arrays.update({k: data[k] for k in data.files})
+            examples = example_hashes(stem_dir.name)
+            if examples:
+                arrays["__examples__"] = np.asarray(examples)
             np.savez_compressed(out_dir / f"{stem_dir.name}.npz",
                                 __sources__=sources,
                                 __jax__=np.asarray(jax.__version__),
@@ -90,14 +94,16 @@ def main(argv=None) -> int:
     ap.add_argument("--check", action="store_true",
                     help="regenerate into a temporary directory and compare "
                          "with the committed files, bit for bit")
+    ap.add_argument("files", nargs="*", default=FILES,
+                    help="the test files to record (default: all of them)")
     args = ap.parse_args(argv)
     if not args.check:
-        record(HERE)
+        record(HERE, args.files)
         total = sum(p.stat().st_size for p in HERE.glob("*.npz"))
         print(f"wrote {len(list(HERE.glob('*.npz')))} files, {total} bytes")
         return 0
     with tempfile.TemporaryDirectory() as tmp:
-        record(Path(tmp))
+        record(Path(tmp), args.files)
         problems = compare(Path(tmp))
     for line in problems:
         print(line)
