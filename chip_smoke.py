@@ -6,9 +6,10 @@ Phases (each ends with ``torch.cuda.synchronize()``; any failed check
 raises, and the script exits non-zero without its result line):
 
 0. Card: name and power limit from ``nvidia-smi``; TF32 turned off.
-1. Build: compiles K1 (``csrc/qrcp.cu``, f32) and K2 (``csrc/qrcp_c64.cu``,
-   c64) from this checkout, one ``nvcc`` each, started together; prints
-   both ``ptxas`` reports.
+1. Build: compiles K1 (``csrc/qrcp.cu``, f32), K2 (``csrc/qrcp_c64.cu``,
+   c64), K3 (``csrc/qrcp_f64.cu``, f64) and K4 (``csrc/qrcp_c128.cu``,
+   c128) from this checkout, one ``nvcc`` each, started together; prints
+   the four ``ptxas`` reports.
 2. K1 and K2 against their plain version on the card at the main paths'
    panel shapes and at ragged and masked ones (a width that is no
    multiple of the cluster's warps, fewer columns than 32 a CTA, a mask
@@ -18,13 +19,20 @@ raises, and the script exits non-zero without its result line):
    shared memory); median times of 10 launches each (CUDA events around
    the wrapper's call: ``ms``, ``plain_ms``) and the kernel alone, queued
    behind a busy card (``device_ms``), beside the roofline bound of the
-   shape. Then, at a small size, the one-read ID, the rSVD, the blocked
-   RRQR (f32 and c64) and the complex two-sided ID on the card against
-   the same call on the CPU with the same Gaussian matrices. Then the two
-   routes of phase 14's eight 2048^2 f32 blocks at k = 16: K1 forced
-   (``mode="kernel"``) and ``auto`` (the JAX package's blocked RRQR, as
-   the working set is over its 12 MiB bound), CUDA-event times of
-   ``pivoted_qr`` and ``batched_column_id`` each, both at cell 14's gates.
+   shape. K3 and K4 the same with each norm rule (``downdate``, K1's;
+   ``recompute``, the 1e-8 ID cores') at the shapes of configs 2h's and
+   4h's cores, config 2's f64 sketch, the high-accuracy ID example's
+   cores, a c128 core and ragged, masked and batched panels: pivots
+   exactly equal, q and r within 1e-9 (f64 sums in another order), two
+   launches bitwise, the layout (a cluster, or the cooperative grid where
+   Q does not fit one). Then, at a small size, the one-read ID, the rSVD,
+   the blocked RRQR (f32 and c64) and the complex two-sided ID on the card
+   against the same call on the CPU with the same Gaussian matrices. Then
+   the two routes of phase 14's eight 2048^2 f32 blocks at k = 16: K1
+   forced (``mode="kernel"``) and ``auto`` (the JAX package's blocked
+   RRQR, as the working set is over its 12 MiB bound), CUDA-event times
+   of ``pivoted_qr`` and ``batched_column_id`` each, both at cell 14's
+   gates.
 3. rSVD (config 3): ``batched_rsvd`` of one 8192^2 f32 block
    G1 diag(geomspace(1, 1e-6, 400)) G2, rank 100, oversample 5, two power
    iterations, Gram small SVD; rel err <= 3 sigma_101 / sigma_1.
@@ -65,8 +73,9 @@ raises, and the script exits non-zero without its result line):
 11. Config 2: ``hilbert(1024)``, ``QR.compute_from(h, max_rank=64)`` ->
     ``compress(Adaptive(tol))`` -> ``column_id()`` at its defaults; f32 at
     1e-5 (blocked, K1 picks the pivots over the whole (72, 1024) sketch)
-    and f64 at 1e-8 (plain pivot rule, no launch); C's columns exact to
-    1e-5 / 1e-12; rel err <= 10 x the optimal rank-k error + 100 eps.
+    and f64 at 1e-8 (K3 picks them over the same sketch); C's columns
+    exact to 1e-5 / 1e-12; rel err <= 10 x the optimal rank-k error + 100
+    eps.
 12. Config 4b1t: ``sketched_two_sided_id(blk, gen, tol=1e-3, max_rank=64)``
     of phase 4's 16384^2 Laplace block; rel err <= 5e-3, rank <= 64, the
     column gather bitwise; K1 on the (80, 144) shortlist of the 72-row
@@ -85,7 +94,7 @@ raises, and the script exits non-zero without its result line):
     part as a ``SumOperator`` through ``compress(RANK(16))``, each against
     the dense matrix of the same operator.
 15-21. The tol <= 1e-8 pipelines in f64 / c128, at the sizes of
-    ``bench_suite.py`` (no kernel lies on their path; each line gives ms
+    ``bench_suite.py`` (K3 / K4 pivot the ID cores; each line gives ms
     per call, GB/s at 8 bytes an element (16 for c128), rank, rel err
     against its gate and the host reads of one call, ``highacc._read``):
     15 config 6, ``refined_rsvd`` and ``refined_rsvd_fused`` of a 4096^2
@@ -97,11 +106,16 @@ raises, and the script exits non-zero without its result line):
     batched growth of eight 256^2 blocks, then fixed rounds with block 0
     Gaussian (``on_unreachable="mark"``): it alone is marked. 18 config
     2h, ``refined_column_id`` of f64 ``hilbert(1024)``: rel err <= 5e-8,
-    columns bitwise, the core's pivots up to the rank equal to scipy's
-    ``?geqp3`` on the same core. 19 config 4h, ``refined_two_sided_id`` of
-    an 8192^2 f64 Laplace block (clouds of ``rng(44)`` 3 apart): rel err
-    <= 1e-7, skeleton bitwise, pivots as in 18. 20 config 6c, 2048^2 c128
-    (decay 60, 96 terms), ``refined_rsvd`` and ``refined_rsvd_planar``.
+    columns bitwise, one K3 launch a call, the core's pivots (K3,
+    ``recompute``) up to the rank equal to scipy's ``?geqp3`` and to the
+    plain rule's on the same core, whose times are printed side by side.
+    19 config 4h, ``refined_two_sided_id`` of an 8192^2 f64 Laplace block
+    (clouds of ``rng(44)`` 3 apart): rel err <= 1e-7, skeleton bitwise,
+    two K3 launches a call, pivots as in 18. 20 config 6c, 2048^2 c128
+    (decay 60, 96 terms), ``refined_rsvd`` and ``refined_rsvd_planar``;
+    then ``refined_two_sided_id(tol=1e-8)`` of the same block: rel err <=
+    10 tol (the JAX package's complex test), skeleton bitwise, two K4
+    launches a call, pivots as in 18.
     21 ``compress(ADAPTIVE(1e-8, highacc=True, round_rank=k))`` of phase
     15's block and phase 17's stack, bitwise the direct calls.
 22. The block stream (BASELINE config 5's shapes on one card): 64 f32
@@ -148,25 +162,30 @@ raises, and the script exits non-zero without its result line):
     adaptive sampler, ``high_accuracy`` (2048^2, tol 1e-8),
     ``high_accuracy_id`` (1500x500), ``complex_operators`` (1024^2 c64,
     rank 27: K2), ``block_workload`` (eight blocks, checkpoint, block 3
-    lost and recovered) and ``hmatrix`` at 3000 points; then ``hmatrix`` at
+    lost and recovered) and ``hmatrix`` at 3000 points (the f64 twins'
+    K3 launches counted and held after the phase); then ``hmatrix`` at
     32,768 points: 12,894 far-field blocks (8.3 GB f64,
     sides up to 2048) in one tolerance stream on the card, 8,906 dense
     blocks, the matvec within 50 tol of the dense operator.
 
-Both launch counts are set to 0 just before each of phases 3-25 and read
-just after it; a kernel that a phase's path must run and that it launched
-no time fails the run. Every panel shape that a phase launched has to be
-one that phase 2 held against the plain version; a shape whose size
-depends on the data (the rank a tolerance found) is held right after its
-phase, outside the count. The line before the last is a JSON object with each
-kernel's launches, error, times and bound; the last line is
+The four launch counts are set to 0 just before each of phases 3-25 and
+read just after it; a kernel that a phase's path must run and that it
+launched no time fails the run. Every K1/K2 panel shape that a phase
+launched has to be one that phase 2 held against the plain version; a
+shape whose size depends on the data (the rank a tolerance found) is held
+right after its phase, outside the count, as is every K3/K4 shape phase 2
+did not hold (the 1e-8 cores are as wide as the capture found). The line
+before the last is a JSON object with each kernel's launches, error, times
+and bound; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Throughput is block bytes over the wall time of one call. A kernel's bound
 is the larger of its bytes (each input read once, each output written
-once) over 3.35 TB/s and its operations over 67 TFLOP/s (f32 outside the
-tensor cores), the H100's published peaks. No single PyTorch call computes
-a column-pivoted QR (``torch.linalg.qr`` does not pivot), so
-``library_ms`` is null for both kernels.
+once) over 3.35 TB/s and its operations over 67 TFLOP/s, the H100 SXM's
+published peak for the type: f32 outside the tensor cores for K1 and K2
+(TF32 is a lower precision), f64 on the tensor cores for K3 and K4 (FP64
+DMMA is IEEE f64). No single PyTorch call computes a
+column-pivoted QR (``torch.linalg.qr`` does not pivot), so ``library_ms``
+is null for all four kernels.
 
 ``--profile`` also runs ``torch.profiler`` over six warm calls of each of
 phases 3-21 (three of the ID stream of 22, of a 128-block refined stream
@@ -187,18 +206,20 @@ import subprocess
 import sys
 import time
 
+#: What each kernel replaces, by wrapper name; entry point, source, dtype
+#: and tolerance come from ``ops.kernels.qrcp.KERNELS``.
 KERNELS = {
-    "qrcp_panel": {
-        "source": "rusty_compression_tpu_torch/csrc/qrcp.cu",
-        "replaces": "rusty_compression_tpu/ops/pallas/qrcp.py:41",
-        "entry": "rc_qrcp_panel_f32"},
-    "qrcp_panel_complex": {
-        "source": "rusty_compression_tpu_torch/csrc/qrcp_c64.cu",
-        "replaces": "rusty_compression_tpu/ops/pallas/qrcp.py:150",
-        "entry": "rc_qrcp_panel_c64"},
+    "qrcp_panel": "rusty_compression_tpu/ops/pallas/qrcp.py:41",
+    "qrcp_panel_complex": "rusty_compression_tpu/ops/pallas/qrcp.py:150",
+    # no Pallas kernel: the JAX package's host ?geqp3 and its jnp loop
+    "qrcp_panel_f64": "rusty_compression_tpu/highacc_id.py:64, "
+                      "rusty_compression_tpu/ops/pivoted_qr.py:62",
+    "qrcp_panel_c128": "rusty_compression_tpu/highacc_id.py:64, "
+                       "rusty_compression_tpu/ops/pivoted_qr.py:62",
 }
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 F32_FLOP_PER_S = 67e12      # f32 outside the tensor cores, published
+F64_FLOP_PER_S = 67e12      # f64 on the tensor cores (IEEE f64), published
 
 
 def check(ok: bool, what: str) -> None:
@@ -244,20 +265,28 @@ def event_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def panel_bound(shape, k: int, itemsize: int, masked: bool) -> dict:
+def panel_bound(shape, k: int, dtype, masked: bool) -> dict:
     """Least time the card could take for one panel call: bytes (the panel
     and the mask read once, q, r and piv written once) over the memory
-    rate, against operations (R row and rank-1 downdate over the panel,
-    the reorthogonalization against Q; four real operations per element
-    and step in f32, sixteen in c64) over the f32 rate. Every one of the k
-    steps runs whatever the data."""
+    rate, against operations over the card's peak rate for the type (f32
+    outside the tensor cores for K1 and K2, as TF32 is a lower precision;
+    f64 on the tensor cores for K3 and K4). Operations: the R row and the
+    rank-1 downdate over the panel (4 m n a step), and the
+    reorthogonalization of step i against Q (4 m i, 2 m k^2 in all); real
+    operations in a real type, four times as many in a complex one. Every
+    one of the k steps runs whatever the data."""
+    from rusty_compression_tpu_torch.ops.kernels.qrcp import WIDE_DTYPES
+
     *batch, m, n = shape
     count = math.prod(batch)
+    itemsize = dtype.itemsize
     nbytes = count * (itemsize * (m * n + m * k + k * n) + 4 * k
                       + (4 * n if masked else 0))
-    ops = count * (4 if itemsize == 4 else 16) * (m * n * k + m * k * k)
+    ops = count * (4 if dtype.is_complex else 1) * (
+        4 * m * n * k + 2 * m * k * k)
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / F32_FLOP_PER_S * 1e3
+    by_ops = ops / (F64_FLOP_PER_S if dtype in WIDE_DTYPES
+                    else F32_FLOP_PER_S) * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
@@ -280,22 +309,24 @@ def phase_build(k1) -> None:
     t0 = time.perf_counter()
     built = k1.build()
     seconds = time.perf_counter() - t0
-    for name, meta in KERNELS.items():
-        path, report = built[meta["entry"]]
-        k1._entry(meta["entry"])
+    for name in KERNELS:
+        entry = k1.KERNELS[name].entry
+        path, report = built[entry]
+        k1._entry(entry)
         say("1-build", kernel=name, seconds_all=seconds, library=path.name,
             ptxas=[line.strip() for line in report.splitlines()
                    if "registers" in line or "spill" in line])
 
 
-def distinct_norm_panel(torch, gen, shape, dtype=None):
+def distinct_norm_panel(torch, gen, shape, dtype):
     """Gaussian columns scaled by geomspace(1, 0.1): distinct norms."""
     n = shape[-1]
-    scale = torch.logspace(0.0, -1.0, n, device="cuda")
-    a = torch.randn(shape, generator=gen, device="cuda")
-    if dtype == torch.complex64:
+    real = dtype.to_real() if dtype.is_complex else dtype
+    scale = torch.logspace(0.0, -1.0, n, device="cuda", dtype=real)
+    a = torch.randn(shape, generator=gen, device="cuda", dtype=real)
+    if dtype.is_complex:
         a = torch.complex(a, torch.randn(shape, generator=gen,
-                                         device="cuda"))
+                                         device="cuda", dtype=real))
     return a * scale
 
 
@@ -333,13 +364,45 @@ KERNEL_CASES = {
         # compress(RANK(27, "two_sided_id"))'s 35-row sketch
         ((37, 1024), 27, False), ((27, 1024), 27, False),
         ((35, 1024), 27, True)],
+    # K3 and K4: (shape, k, mask, norm rule)
+    "qrcp_panel_f64": [
+        ((256, 8192), 256, False, "recompute"),   # config 4h's core
+        ((169, 8192), 169, False, "recompute"),   # 4h: the LQ of C
+        ((32, 1024), 32, False, "recompute"),     # config 2h's core
+        ((72, 1024), 64, True, "downdate"),       # config 2's f64 sketch
+        ((453, 1500), 453, False, "recompute"),   # the example's LQ of C
+        ((500, 500), 480, False, "recompute"),    # the example's core
+        ((256, 8192), 256, False, "downdate"),    # the other rule, grid
+        ((32, 1024), 32, False, "downdate"),      # the other rule, cluster
+        ((72, 1024), 64, True, "recompute"),
+        ((37, 301), 29, True, "downdate"),        # ragged, masked
+        ((169, 8191), 100, True, "recompute"),    # ragged grid, masked
+        ((24, 16389), 16, "slice", "downdate"),   # one CTA's slice masked
+        ((8, 24, 2048), 16, False, "downdate"),   # a stack's sketch
+        ((2, 169, 8192), 64, False, "recompute"),  # a stack on the grid
+        ((600, 40), 8, False, "recompute"),       # few columns a CTA
+        # f64 gs over the JAX package's 12 MiB working set: a tall panel
+        # (residual in L2), and a 16384-row range sketch whose CTA vectors
+        # lie in global memory
+        ((4096, 512), 64, False, "downdate"),
+        ((16384, 58), 50, False, "downdate")],
+    "qrcp_panel_c128": [
+        ((96, 2048), 96, False, "recompute"),     # a c128 core (grid)
+        ((70, 2048), 70, True, "recompute"),
+        ((96, 2048), 96, False, "downdate"),
+        ((37, 301), 29, True, "downdate"),
+        ((24, 1024), 24, False, "recompute"),     # a core on a cluster
+        ((8, 24, 2048), 16, False, "downdate"),
+        ((600, 40), 8, False, "recompute"),
+        ((8192, 40), 32, False, "downdate")],     # vectors in global memory
 }
 
 
 class KernelChecks:
     """Phase 2: each kernel against its plain version, shape by shape.
     ``held`` keeps, per kernel, the ``((panels, m, n), k, masked)`` that
-    passed, in the form the wrappers record what they launched."""
+    passed (and the norm rule for K3, K4), in the form the wrappers record
+    what they launched."""
 
     def __init__(self, torch, k1, gen):
         self.torch, self.k1, self.gen = torch, k1, gen
@@ -347,14 +410,17 @@ class KernelChecks:
         self.worst = {name: 0.0 for name in KERNELS}
         self.main = {}
 
-    def hold(self, name: str, shape, k: int, masked, reps: int = 10) -> None:
+    def hold(self, name: str, shape, k: int, masked, norms=None,
+             reps: int = 10) -> None:
         from rusty_compression_tpu_torch.ops.kernels.sweep import device_ms
 
         torch, k1 = self.torch, self.k1
-        fn = getattr(k1, name)
-        dtype = torch.complex64 if name.endswith("complex") else None
-        a = distinct_norm_panel(torch, self.gen, shape, dtype)
-        layout = k1.panel_layout(*shape[-2:], k, a.element_size())
+        wrapper, spec = getattr(k1, name), k1.KERNELS[name]
+        wide, tol = spec.wide, spec.tol
+        rule = {"norms": norms} if wide else {}
+        fn = lambda a, k, used: wrapper(a, k, used=used, **rule)  # noqa: E731
+        a = distinct_norm_panel(torch, self.gen, shape, spec.dtype)
+        layout = k1.panel_layout(*shape[-2:], k, a.element_size(), wide)
         used = None
         if masked:
             used = torch.zeros(shape[-1], dtype=torch.bool, device="cuda")
@@ -363,43 +429,47 @@ class KernelChecks:
                 used[:layout.width] = True
             else:
                 used[::7] = True
-        q, r, piv = fn(a, k, used=used)
-        q0, r0, piv0 = k1.qrcp_panel_plain(a, k, used)
+        q, r, piv = fn(a, k, used)
+        plain = lambda: k1.qrcp_panel_plain(  # noqa: E731
+            a, k, used, norms or "downdate")
+        q0, r0, piv0 = plain()
         torch.cuda.synchronize()
         check(torch.equal(piv.long(), piv0),
-              f"{name} pivots at {shape} k={k}")
+              f"{name} pivots at {shape} k={k} {norms}")
         err = max(float((q - q0).abs().max()), float((r - r0).abs().max()))
-        check(err <= 1e-4, f"{name} |q|, |r| error {err} at {shape} k={k}")
-        again = fn(a, k, used=used)
+        check(err <= tol, f"{name} |q|, |r| error {err} at {shape} k={k}")
+        again = fn(a, k, used)
         torch.cuda.synchronize()
         check(all(torch.equal(x, y) for x, y in zip((q, r, piv), again)),
               f"{name} at {shape} k={k}: two launches differ")
-        times = {"ms": event_ms(lambda: fn(a, k, used=used), reps),
-                 "device_ms": device_ms(torch, lambda: fn(a, k, used=used)),
-                 "plain_ms": event_ms(
-                     lambda: k1.qrcp_panel_plain(a, k, used), reps),
-                 **panel_bound(shape, k, a.element_size(), masked)}
+        times = {"ms": event_ms(lambda: fn(a, k, used), reps),
+                 "device_ms": device_ms(torch, lambda: fn(a, k, used)),
+                 "plain_ms": event_ms(plain, reps),
+                 **panel_bound(shape, k, a.dtype, masked)}
         say("2-kernel", kernel=name, shape=list(shape), k=k,
-            used_mask=masked, cluster=layout.cluster,
-            resid_in_smem=layout.resid_in_smem,
+            used_mask=masked, **rule, cluster=layout.cluster,
+            grid=layout.grid, resid_in_smem=layout.resid_in_smem,
+            vectors_in_smem=layout.vectors_in_smem,
             smem_bytes=layout.smem_bytes, threads=layout.threads,
             pivots_equal=True, repeat_bitwise=True, max_abs_err=err, **times)
         self.worst[name] = max(self.worst[name], err)
         self.main.setdefault(name, times)
         panels = shape[0] if len(shape) == 3 else 1
-        self.held[name].add(((panels, *shape[-2:]), k, bool(masked)))
+        key = ((panels, *shape[-2:]), k, bool(masked))
+        self.held[name].add((*key, norms) if wide else key)
 
     def hold_launched(self, name: str, allowed) -> None:
         """Hold the shapes ``name`` launched and phase 2 has not seen, if
-        ``allowed(shape, k, masked)`` says their size depends on the data;
-        any other unseen shape fails the run."""
+        ``allowed(shape, k, masked)`` says their size depends on the data
+        (every K3/K4 shape: the 1e-8 cores are as wide as the capture
+        found); any other unseen shape fails the run."""
         launched = getattr(self.k1, name).launched_shapes
-        for shape, k, masked in sorted(launched - self.held[name]):
-            check(allowed(shape, k, masked),
+        for shape, k, masked, *norms in sorted(launched - self.held[name]):
+            check(self.k1.KERNELS[name].wide or allowed(shape, k, masked),
                   f"{name} was launched at {shape} k={k} masked={masked}, "
                   f"a shape that phase 2 did not hold")
             self.hold(name, shape if shape[0] > 1 else shape[1:], k, masked,
-                      reps=5)
+                      *norms, reps=5)
 
     def summary(self) -> dict:
         return {name: {"max_abs_err": self.worst[name], **self.main[name]}
@@ -409,8 +479,8 @@ class KernelChecks:
 def phase_kernel(torch, k1, gen) -> KernelChecks:
     checks = KernelChecks(torch, k1, gen)
     for name, cases in KERNEL_CASES.items():
-        for shape, k, masked in cases:
-            checks.hold(name, shape, k, masked)
+        for shape, k, masked, *norms in cases:
+            checks.hold(name, shape, k, masked, *norms)
     torch.cuda.synchronize()
     return checks
 
@@ -532,6 +602,48 @@ def phase_route(torch, gen, count: int = 8, size: int = 2048,
         auto_resolves_to=_resolve_mode("auto", size, size, rank,
                                        blocks.dtype, blocks.device),
         kernel=times["kernel"], auto=times["auto"])
+
+
+def phase_route_gs(torch, k1) -> None:
+    """f64 / c128 ``pivoted_qr(mode="gs")`` on the card: K3 / K4 at every
+    shape, one launch a call (a panel a launch on the grid), with no plain
+    fallback (a panel over the JAX package's 12 MiB working
+    set, a stack of four dimensions, a tall c128 panel whose CTA vectors
+    lie in global memory), ``(q, r, ind)`` as the plain loop's on the same
+    tensor (pivots equal, q and r within the kernel's tolerance). CUDA-event
+    medians of the call and of the plain loop."""
+    from rusty_compression_tpu_torch import pivoted_qr
+    from rusty_compression_tpu_torch.ops.pivoted_qr import _full_permutation
+
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    for shape, k, dtype in (((4096, 512), 64, torch.float64),
+                            ((2, 2, 300, 200), 40, torch.float64),
+                            ((8192, 40), 32, torch.complex128)):
+        spec = k1.KERNELS[k1.PANEL_KERNELS[dtype].__name__]
+        wrapper = k1.PANEL_KERNELS[dtype]
+        a = distinct_norm_panel(torch, gen, shape, dtype)
+        panels = math.prod(shape[:-2])
+        layout = k1.panel_layout(*shape[-2:], k, a.element_size(), True)
+        want = panels if layout.grid else 1   # the grid: a launch a panel
+        before = wrapper.launch_count
+        q, r, ind = pivoted_qr(a, k, mode="gs")
+        torch.cuda.synchronize()
+        check(wrapper.launch_count - before == want,
+              f"gs at {shape} {dtype}: {wrapper.launch_count - before} "
+              f"{spec.entry} launches, not {want}")
+        q0, r0, piv0 = k1.qrcp_panel_plain(a, k)
+        ind0 = _full_permutation(piv0, shape[-1])
+        r0 = torch.triu(torch.take_along_dim(r0, ind0.unsqueeze(-2), dim=-1))
+        err = max(float((q - q0).abs().max()), float((r - r0).abs().max()))
+        check(torch.equal(ind, ind0) and err <= spec.tol,
+              f"gs at {shape} {dtype}: pivots or factors ({err}) differ "
+              f"from the plain loop's")
+        say("2-route-gs", shape=list(shape), k=k, dtype=str(dtype),
+            launches=want, grid=layout.grid,
+            vectors_in_smem=layout.vectors_in_smem,
+            pivots_equal=True, max_abs_err=err,
+            gs_ms=event_ms(lambda: pivoted_qr(a, k, mode="gs")),
+            plain_ms=event_ms(lambda: k1.qrcp_panel_plain(a, k), reps=3))
 
 
 def phase_rsvd(torch, rt, gen):
@@ -830,13 +942,13 @@ def phase_hilbert(torch, rt, k1, gen, size: int = 1024):
     """Config 2, through the call the benchmark makes, at its defaults. Q
     of a (1024, 64) panel does not fit K1, so ``auto`` goes blocked with
     one 64-wide panel, and at small rank that runs the pivot rule over the
-    whole width of the (72, 1024) sketch: K1 in f32, the plain rule in
-    f64."""
+    whole width of the (72, 1024) sketch: K1 in f32, K3 in f64."""
     from rusty_compression_tpu_torch.utils.kernel_matrices import hilbert
 
     runs = []
-    for dtype, tol, col_gate, must in ((torch.float32, 1e-5, 1e-5, True),
-                                       (torch.float64, 1e-8, 1e-12, False)):
+    for dtype, tol, col_gate, kernel in (
+            (torch.float32, 1e-5, 1e-5, k1.qrcp_panel),
+            (torch.float64, 1e-8, 1e-12, k1.qrcp_panel_f64)):
         h = hilbert(size, dtype=dtype, device=gen.device)
         s = torch.linalg.svdvals(h.double())
 
@@ -844,12 +956,12 @@ def phase_hilbert(torch, rt, k1, gen, size: int = 1024):
             qr = rt.QR.compute_from(h, max_rank=64, generator=gen)
             return qr.compress(rt.CompressionType.ADAPTIVE(tol)).column_id()
 
-        before = k1.qrcp_panel.launch_count
+        before = kernel.launch_count
         cid = run()
         torch.cuda.synchronize()
-        launches = k1.qrcp_panel.launch_count - before
-        check((launches > 0) == must,
-              f"config 2 ({dtype}): {launches} K1 launches")
+        launches = kernel.launch_count - before
+        check(launches == 1,
+              f"config 2 ({dtype}): {launches} {kernel.__name__} launches")
         err = float(rt.rel_diff_fro(cid.to_mat(), h))
         e_opt = float(torch.sqrt((s[cid.rank:] ** 2).sum() / (s ** 2).sum()))
         gate = 10 * e_opt + 100 * float(torch.finfo(dtype).eps)
@@ -861,7 +973,8 @@ def phase_hilbert(torch, rt, k1, gen, size: int = 1024):
         ms = wall_ms(run, reps=5)
         say("11-config-2-hilbert", size=size, dtype=str(dtype), tol=tol,
             rank=cid.rank, rel_err=err, e_opt=e_opt, gate=gate,
-            column_abs_err=col_err, k1_launches_per_call=launches, ms=ms,
+            column_abs_err=col_err, kernel=kernel.__name__,
+            launches_per_call=launches, ms=ms,
             gbps=size * size * h.element_size() / (ms * 1e-3) / 1e9)
         runs.append(run)
     return lambda: [run() for run in runs]
@@ -1247,25 +1360,47 @@ def phase_batched_growth(torch, rt, gen):
 
 def core_pivots_as_geqp3(torch, rt, a, gen, rank: int):
     """The core that the ID's capture builds (a generator in ``gen``'s
-    state), pivoted on the card and by scipy's ``?geqp3`` on the host:
-    ``ind[:rank]`` must be equal. Returns the first index where they part
-    and the ms of the card's pivot rule on that core."""
+    state), pivoted on the card by K3/K4 (``_core_qrcp``, norm rule
+    ``recompute``), by the plain rule on the card (``qrcp_core_plain``)
+    and by scipy's ``?geqp3`` on the host: ``ind[:rank]`` must be equal
+    in all three. Returns the first index where the kernel's part from
+    ``?geqp3``'s and from the plain rule's, and the ms of the kernel's and
+    the plain rule's pivot rule on that core (host clock, synchronised)."""
     import numpy as np
     import scipy.linalg
 
     from rusty_compression_tpu_torch.highacc_id import _core_qrcp
+    from rusty_compression_tpu_torch.ops.kernels.qrcp import qrcp_core_plain
+    from rusty_compression_tpu_torch.ops.pivoted_qr import _full_permutation
 
     _, b, _, _ = rt.refined_capture(a, same_state(gen), tol=1e-8)
     _, ind = _core_qrcp(b)
+    plain = lambda: qrcp_core_plain(b)  # noqa: E731
+    plain_ind = _full_permutation(plain()[2], b.shape[1]).cpu().numpy()
     _, _, piv = scipy.linalg.qr(b.cpu().numpy(), mode="economic",
                                 pivoting=True)
     ind = ind.cpu().numpy()
     check(np.array_equal(ind[:rank], piv[:rank]),
           f"core pivots differ from ?geqp3's before the rank {rank}")
-    differ = np.nonzero(ind[:len(piv)] != piv)[0]
-    return (int(differ[0]) if differ.size else len(piv),
-            {"core": list(b.shape),
-             "pivot_rule_ms": wall_ms(lambda: _core_qrcp(b), reps=3)})
+    check(np.array_equal(ind[:rank], plain_ind[:rank]),
+          f"core pivots differ from the plain rule's before the rank {rank}")
+
+    def first_difference(other):
+        differ = np.nonzero(ind[:len(other)] != other[:len(ind)])[0]
+        return int(differ[0]) if differ.size else min(len(other), len(ind))
+
+    return (first_difference(piv),
+            {"core": list(b.shape), "dtype": str(b.dtype),
+             "pivots_as_plain_to": first_difference(plain_ind),
+             "pivot_rule_ms": wall_ms(lambda: _core_qrcp(b), reps=3),
+             "plain_pivot_rule_ms": wall_ms(plain, reps=3)})
+
+
+def launches_of(kernel, fn):
+    """``(result, launches of kernel)`` of one call of ``fn``."""
+    before = kernel.launch_count
+    out = fn()
+    return out, kernel.launch_count - before
 
 
 def phase_hilbert_id(torch, rt, gen):
@@ -1273,10 +1408,14 @@ def phase_hilbert_id(torch, rt, gen):
     from rusty_compression_tpu_torch import highacc as ha
     from rusty_compression_tpu_torch.utils.kernel_matrices import hilbert
 
+    from rusty_compression_tpu_torch.ops.kernels import qrcp as k1
+
     h = hilbert(1024, dtype=torch.float64, device="cuda")
     twin = same_state(gen)
     run = lambda: rt.refined_column_id(h, gen, tol=1e-8)  # noqa: E731
-    cid, reads = reads_of(ha, run)
+    (cid, reads), k3 = launches_of(k1.qrcp_panel_f64,
+                                   lambda: reads_of(ha, run))
+    check(k3 == 1, f"config 2h: {k3} K3 launches a call, not 1")
     agree, pivot_rule = core_pivots_as_geqp3(torch, rt, h, twin, cid.rank)
     check(torch.equal(rt.refined_column_id(h, same_state(twin),
                                            tol=1e-8).col_ind, cid.col_ind),
@@ -1287,7 +1426,8 @@ def phase_hilbert_id(torch, rt, gen):
           "config 2h columns are not bitwise")
     ms = wall_ms(run, reps=5)
     say("18-hilbert-column-id", size=1024, rank=cid.rank, rel_err=err,
-        gate=5e-8, columns_bitwise=True, pivots_as_geqp3_to=agree,
+        gate=5e-8, columns_bitwise=True, k3_launches_per_call=k3,
+        pivots_as_geqp3_to=agree,
         **pivot_rule, host_reads=reads, ms=ms, gbps=h.numel() * 8 / (ms * 1e-3) / 1e9)
     return run
 
@@ -1298,6 +1438,7 @@ def phase_two_sided_refined(torch, rt, gen, size: int = 8192):
     import numpy as np
 
     from rusty_compression_tpu_torch import highacc as ha
+    from rusty_compression_tpu_torch.ops.kernels import qrcp as k1
     from rusty_compression_tpu_torch.utils.kernel_matrices import (
         laplace_kernel_block)
 
@@ -1309,7 +1450,9 @@ def phase_two_sided_refined(torch, rt, gen, size: int = 8192):
                              torch.from_numpy(y).cuda())
     twin = same_state(gen)
     run = lambda: rt.refined_two_sided_id(a, gen, tol=1e-8)  # noqa: E731
-    ts, reads = reads_of(ha, run)
+    (ts, reads), k3 = launches_of(k1.qrcp_panel_f64,
+                                  lambda: reads_of(ha, run))
+    check(k3 == 2, f"config 4h: {k3} K3 launches a call, not 2")
     agree, pivot_rule = core_pivots_as_geqp3(torch, rt, a, twin, ts.rank)
     k = ts.rank
     err = rel_fro(torch, ts.c @ (ts.x @ ts.r), a)
@@ -1318,7 +1461,8 @@ def phase_two_sided_refined(torch, rt, gen, size: int = 8192):
           "config 4h skeleton is not bitwise")
     ms = wall_ms(run, reps=3)
     say("19-two-sided-id-8192", block=[size, size], rank=k, rel_err=err,
-        gate=1e-7, skeleton_bitwise=True, pivots_as_geqp3_to=agree,
+        gate=1e-7, skeleton_bitwise=True, k3_launches_per_call=k3,
+        pivots_as_geqp3_to=agree,
         **pivot_rule, host_reads=reads, ms=ms, blocks_per_s=1 / (ms * 1e-3),
         gbps=a.numel() * 8 / (ms * 1e-3) / 1e9)
     return run
@@ -1326,10 +1470,13 @@ def phase_two_sided_refined(torch, rt, gen, size: int = 8192):
 
 def phase_refined_complex(torch, rt, gen):
     """Config 6c: 2048^2 c128, rng(66), decay 60 over 96 terms,
-    round_rank 66."""
+    round_rank 66; then its two-sided ID at tol 1e-8, whose two cores K4
+    pivots (the gate of the JAX package's complex refined-ID tests: rel
+    err <= 10 tol, skeleton bitwise)."""
     import numpy as np
 
     from rusty_compression_tpu_torch import highacc as ha
+    from rusty_compression_tpu_torch.ops.kernels import qrcp as k1
 
     a, cross = decay_block(torch, np.random.default_rng(66), 2048, 96, 60,
                            complex_=True)
@@ -1340,6 +1487,24 @@ def phase_refined_complex(torch, rt, gen):
         refined_line("20-refined-c128-2048", torch, ha, run, a, 5e-8, cross,
                      entry=entry)
         runs.append(run)
+
+    twin = same_state(gen)
+    run = lambda: rt.refined_two_sided_id(a, gen, tol=1e-8)  # noqa: E731
+    (ts, reads), k4 = launches_of(k1.qrcp_panel_c128,
+                                  lambda: reads_of(ha, run))
+    check(k4 == 2, f"config 6c two-sided ID: {k4} K4 launches, not 2")
+    agree, pivot_rule = core_pivots_as_geqp3(torch, rt, a, twin, ts.rank)
+    k = ts.rank
+    err = rel_fro(torch, ts.c @ (ts.x @ ts.r), a)
+    check(math.isfinite(err) and err <= 1e-7,
+          f"config 6c two-sided ID rel err {err}")
+    check(torch.equal(ts.x, a[ts.row_ind[:k][:, None], ts.col_ind[:k]]),
+          "config 6c skeleton is not bitwise")
+    say("20-two-sided-id-c128-2048", block=list(a.shape), rank=k,
+        crossing=cross, rel_err=err, gate=1e-7, skeleton_bitwise=True,
+        k4_launches_per_call=k4, pivots_as_geqp3_to=agree, **pivot_rule,
+        host_reads=reads, ms=wall_ms(run, reps=3))
+    runs.append(run)
     return lambda: [run() for run in runs]
 
 
@@ -2243,9 +2408,10 @@ def main(argv) -> int:
     checks = phase_kernel(torch, k1, gen)
     phase_reference(torch, rt)
     phase_route(torch, torch.Generator(device="cuda").manual_seed(14))
+    phase_route_gs(torch, k1)
 
-    # The main paths: each phase with both counts at 0 just before it and
-    # read just after; `must` names the kernel its path has to launch.
+    # The main paths: each phase with the four counts at 0 just before it
+    # and read just after; `must` names the kernels its path has to launch.
     # Phases from 6 on draw from generators of their own, so that what they
     # compute does not depend on how much the phases before them drew.
     # `late` says which of a phase's K1 shapes have a size that its data
@@ -2276,7 +2442,7 @@ def main(argv) -> int:
          lambda shape, k, masked: (masked and shape[:2] == (1, 136)
                                    and shape[2] == 2 * k and k % 32 == 0),
          lambda: phase_adaptive_qr(torch, rt, k1, gens[10])),
-        ("11-config-2-hilbert", "qrcp_panel", no_late,
+        ("11-config-2-hilbert", ("qrcp_panel", "qrcp_panel_f64"), no_late,
          lambda: phase_hilbert(torch, rt, k1, gens[11])),
         # the LQ of C: a (rank, 16384) panel at the rank the tolerance found
         ("12-config-4b1t-16384", "qrcp_panel",
@@ -2287,18 +2453,18 @@ def main(argv) -> int:
          lambda: phase_nystrom(torch, rt, gens[13])),
         ("14-front-door", "qrcp_panel", no_late,
          lambda: phase_front_door(torch, rt, k1, gens[14])),
-        # the tol <= 1e-8 pipelines: f64 / c128, no kernel on their path
+        # the tol <= 1e-8 pipelines, f64 / c128: K3 / K4 pivot the ID cores
         ("15-refined-rsvd-4096", None, no_late,
          lambda: phase_refined_rsvd(torch, rt, gens[15])),
         ("16-growth-512", None, no_late,
          lambda: phase_growth(torch, rt, gens[16])),
         ("17-batched-growth", None, no_late,
          lambda: phase_batched_growth(torch, rt, gens[17])),
-        ("18-hilbert-column-id", None, no_late,
+        ("18-hilbert-column-id", "qrcp_panel_f64", no_late,
          lambda: phase_hilbert_id(torch, rt, gens[18])),
-        ("19-two-sided-id-8192", None, no_late,
+        ("19-two-sided-id-8192", "qrcp_panel_f64", no_late,
          lambda: phase_two_sided_refined(torch, rt, gens[19])),
-        ("20-refined-c128-2048", None, no_late,
+        ("20-refined-c128-2048", "qrcp_panel_c128", no_late,
          lambda: phase_refined_complex(torch, rt, gens[20])),
         ("21-front-door-highacc", None, no_late,
          lambda: phase_refined_front_door(torch, rt, gens[21])),
@@ -2315,7 +2481,7 @@ def main(argv) -> int:
         # pivoted QR; phase 2 holds each new one after the phase
         ("24-mesh", "qrcp_panel", lambda shape, k, masked: k == 16,
          lambda: phase_mesh(torch, rt, k1, gens[24], volume)),
-        # the complex example launches K2; the other twins run in f64
+        # the complex example launches K2; the f64 twins launch K3
         ("25-examples", "qrcp_panel_complex", no_late,
          lambda: phase_examples(torch)),
     ]
@@ -2327,10 +2493,11 @@ def main(argv) -> int:
         run = drive()
         torch.cuda.synchronize()
         counts = {name: getattr(k1, name).launch_count for name in KERNELS}
-        check(must is None or counts[must] > 0,
-              f"phase {phase} launched no {must} kernel")
+        for name in (must,) if isinstance(must, str) else must or ():
+            check(counts[name] > 0, f"phase {phase} launched no {name} "
+                  f"kernel")
         say("launches", path=phase, **counts, shapes={
-            name: sorted([list(shape), k, masked] for shape, k, masked
+            name: sorted([list(shape), *rest] for shape, *rest
                          in getattr(k1, name).launched_shapes)
             for name in KERNELS})
         for name in KERNELS:
@@ -2354,15 +2521,17 @@ def main(argv) -> int:
         dist.destroy_process_group()
 
     print(card)
+    csrc = "rusty_compression_tpu_torch/csrc/"
     print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda", "source": meta["source"],
-        "replaces": meta["replaces"], "launches": launches[name],
+        "name": name, "route": "cuda",
+        "source": csrc + k1.KERNELS[name].source,
+        "replaces": replaces, "launches": launches[name],
         "max_abs_err": kernels[name]["max_abs_err"],
         "ms": kernels[name]["ms"], "device_ms": kernels[name]["device_ms"],
         "plain_ms": kernels[name]["plain_ms"],
         "bound_ms": kernels[name]["bound_ms"],
         "bound_by": kernels[name]["bound_by"], "library_ms": None}
-        for name, meta in KERNELS.items()]}))
+        for name, replaces in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -27,7 +27,7 @@
 // spend few barriers a step.
 //
 // What this design does about it (the step loop is in qrcp_common.cuh,
-// written once for f32 and complex64):
+// written once for f32, complex64 and, in K3 and K4, f64 and complex128):
 // - One panel is one thread-block cluster of C = 1, 2, 4, 8 or 16 CTAs;
 //   CTA c owns the columns [c w, (c + 1) w), w = ceil(n / C). A batch of
 //   panels is a grid of clusters.

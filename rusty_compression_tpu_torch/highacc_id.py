@@ -18,8 +18,9 @@ the factorization is column k of A.
 The factors are the port's ``ColumnID`` / ``RowID`` / ``TwoSidedID`` with
 f64/c128 tensors on the input's device (int64 index vectors). The JAX
 package pivots on the host with LAPACK because its accelerator has no f64;
-here the pivots are taken on the card, and ``_host_row_id_of_columns``
-keeps its name though nothing of it runs on the host.
+here the pivots are taken on the card (K3, K4), and
+``_host_row_id_of_columns`` keeps its name though nothing of it runs on
+the host.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 
 from .highacc import _as_wide, _read, refined_capture
 from .models.interp_decomp import ColumnID, RowID, TwoSidedID
+from .ops.kernels.qrcp import qrcp_panel_c128, qrcp_panel_f64
 from .ops.pivoted_qr import _full_permutation
 from .utils.errors import CompressionError
 
@@ -40,35 +42,16 @@ def _core_qrcp(b: torch.Tensor):
     steps: ``(r, ind)`` with ``b[:, ind] ~= q r``, ``r`` upper triangular.
 
     The pivot is the column of largest residual norm, as in ``?geqp3``,
-    with the norms recomputed from the residual each step. The plain
-    pivot rule (``qrcp_panel_plain``) downdates them, and at tol 1e-8 the
-    squared norms it subtracts cancel to roundoff: on a captured core of
-    ``hilbert(1024)`` it left ``?geqp3``'s pivots at step 14 of 16 (Laplace
-    block, step 97 of 143). ``?geqp3`` recomputes a norm whenever its
-    downdate has cancelled that far. One reorthogonalization pass per
-    pivot column.
+    with the norms recomputed from the residual each step (the downdated
+    norms of the plain pivot rule cancel to roundoff at tol 1e-8; see
+    ``qrcp_core_plain``). On the card K3 (f64) or K4 (c128) with the norm
+    rule ``"recompute"``; on the CPU its plain version, ``qrcp_core_plain``.
     """
     m, n = b.shape
-    k = min(m, n)
-    resid = b.resolve_conj()
-    q = b.new_zeros((m, k))
-    r = b.new_zeros((k, n))
-    piv = torch.zeros(k, dtype=torch.int64, device=b.device)
-    used = torch.zeros(n, dtype=torch.bool, device=b.device)
-    for i in range(k):
-        norms = torch.linalg.vector_norm(resid, dim=0).masked_fill(used, -1.0)
-        j = torch.argmax(norms).reshape(1)  # the first of equal maxima
-        v = resid.index_select(1, j)[:, 0]
-        v = v - q @ (q.mH @ v)
-        nv = torch.linalg.vector_norm(v)
-        qi = v * torch.where(nv > 0, 1.0 / torch.where(nv > 0, nv, 1.0), 0.0)
-        r_row = qi.conj() @ resid
-        resid = resid - qi[:, None] * r_row[None, :]
-        used.index_fill_(0, j, True)
-        q[:, i] = qi
-        r[i] = r_row
-        piv[i:i + 1] = j
-    ind = _full_permutation(piv, n)
+    wrapper = qrcp_panel_c128 if b.is_complex() else qrcp_panel_f64
+    _, r, piv = wrapper(b.resolve_conj().contiguous(), min(m, n),
+                        norms="recompute")
+    ind = _full_permutation(piv.long(), n)
     return torch.triu(r[:, ind]), ind
 
 

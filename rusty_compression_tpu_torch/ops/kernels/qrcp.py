@@ -1,23 +1,29 @@
-"""K1 and K2: fused column-pivoted Gram–Schmidt QR panels — CUDA kernels
-and their plain PyTorch version.
+"""K1–K4: fused column-pivoted Gram–Schmidt QR panels — CUDA kernels and
+their plain PyTorch versions.
 
-Ports of the Pallas TPU kernels of
+K1 and K2 are ports of the Pallas TPU kernels of
 ``rusty_compression_tpu/ops/pallas/qrcp.py``: K1 is ``qrcp_panel`` (f32,
 ``csrc/qrcp.cu``), K2 is ``qrcp_panel_complex`` (c64,
-``csrc/qrcp_c64.cu``). Both instantiate the one step loop of
+``csrc/qrcp_c64.cu``). K3 (``qrcp_panel_f64``, ``csrc/qrcp_f64.cu``) and
+K4 (``qrcp_panel_c128``, ``csrc/qrcp_c128.cu``) take the place of what the
+JAX package runs off its accelerator for f64 and c128: the ``_qrcp_gs``
+loop (norm rule ``"downdate"``, K1's) and LAPACK ``?geqp3`` for the tol
+<= 1e-8 ID cores (norm rule ``"recompute"``: each column's norm summed
+afresh in every step's pass). All four instantiate the one step loop of
 ``csrc/qrcp_common.cuh``: one panel over a thread-block cluster, the
 columns split over its CTAs, each CTA's residual slice in its shared
-memory where it fits (``panel_layout`` decides, from the shape alone).
-Each source is compiled for ``sm_90a`` with ``nvcc`` into ``_build/`` at
-the first use of either kernel on a CUDA tensor (one ``nvcc`` per source,
-started together) and bound through ``ctypes`` (a plain C interface, so a
-build takes seconds and needs neither ninja nor PyTorch's headers).
+memory where it fits; K3 and K4 run the panels whose Q does not fit a
+cluster as one cooperative grid (``panel_layout`` decides, from the shape
+alone). Each source is compiled for ``sm_90a`` with ``nvcc`` into
+``_build/`` at the first use of any kernel on a CUDA tensor (one ``nvcc``
+per source, started together) and bound through ``ctypes`` (a plain C
+interface, so a build takes seconds and needs neither ninja nor PyTorch's
+headers).
 
-``qrcp_panel`` and ``qrcp_panel_complex`` run the plain version for a
-tensor on the CPU and launch their kernel for a CUDA tensor, or raise;
-they never fall back. Each counts its kernel launches in its
-``launch_count`` and keeps the distinct shapes it launched at in its
-``launched_shapes``.
+Each wrapper runs the plain version for a tensor on the CPU and launches
+its kernel for a CUDA tensor, or raises; none falls back. Each counts its
+kernel launches in its ``launch_count`` and keeps the distinct shapes it
+launched at in its ``launched_shapes``.
 """
 
 from __future__ import annotations
@@ -37,16 +43,45 @@ import torch
 
 from ...utils.dtypes import real_dtype
 
-__all__ = ["qrcp_panel", "qrcp_panel_complex", "qrcp_panel_plain",
-           "kernel_fits", "panel_layout", "PanelLayout", "build"]
+__all__ = ["qrcp_panel", "qrcp_panel_complex", "qrcp_panel_f64",
+           "qrcp_panel_c128", "qrcp_panel_plain", "qrcp_core_plain",
+           "kernel_fits", "panel_layout", "PanelLayout", "KERNELS", "build"]
 
 _PKG = Path(__file__).resolve().parents[2]
 _CSRC = _PKG / "csrc"
 _HEADER = _CSRC / "qrcp_common.cuh"
-#: C entry point -> its source.
-_SOURCES = {"rc_qrcp_panel_f32": _CSRC / "qrcp.cu",
-            "rc_qrcp_panel_c64": _CSRC / "qrcp_c64.cu"}
 _BUILD_DIR = _PKG / "_build"
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelSpec:
+    """One kernel: its C entry point, its source under ``csrc/``, the dtype
+    its wrapper takes (``label`` names it in errors), whether it is one of
+    K3 and K4 (``wide``: f64 norms, the two norm rules, the grid layout)
+    and the entry-wise tolerance of its q and r against the plain version
+    (the same arithmetic summed in another order)."""
+    entry: str
+    source: str
+    dtype: torch.dtype
+    label: str
+    wide: bool
+    tol: float
+
+
+#: The kernels by wrapper name: the one table that the routes, the layout
+#: sweep (``sweep.py``) and ``chip_smoke.py`` read.
+KERNELS = {
+    "qrcp_panel": KernelSpec("rc_qrcp_panel_f32", "qrcp.cu", torch.float32,
+                             "f32", False, 1e-4),
+    "qrcp_panel_complex": KernelSpec("rc_qrcp_panel_c64", "qrcp_c64.cu",
+                                     torch.complex64, "c64", False, 1e-4),
+    "qrcp_panel_f64": KernelSpec("rc_qrcp_panel_f64", "qrcp_f64.cu",
+                                 torch.float64, "f64", True, 1e-9),
+    "qrcp_panel_c128": KernelSpec("rc_qrcp_panel_c128", "qrcp_c128.cu",
+                                  torch.complex128, "c128", True, 1e-9),
+}
+#: The dtypes of K3 and K4.
+WIDE_DTYPES = tuple(spec.dtype for spec in KERNELS.values() if spec.wide)
 
 #: Dynamic shared memory the kernel may request: an H100 block gets at
 #: most 232,448 bytes, less the kernel's 1 KB of static shared memory.
@@ -54,33 +89,51 @@ SMEM_LIMIT_BYTES = 232448 - 1024
 #: Cluster sizes the kernels take (16 is Hopper's non-portable maximum).
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
 MAX_THREADS = 1024
+#: CTAs of K3's and K4's cooperative grid at most: one an SM, under the
+#: H100 SXM's 132.
+MAX_GRID = 128
+#: The norm rules of K3 and K4, as the C entry points number them.
+NORM_RULES = {"downdate": 0, "recompute": 1}
 #: Residual elements a CTA may hold before the layout rule splits the
 #: panel over a larger cluster: below it a step's fixed cost (barriers,
 #: reorthogonalization) outweighs the column pass (``sweep.py``'s table).
 _SPLIT_ELEMENTS = 4608
-
 
 @dataclasses.dataclass(frozen=True)
 class PanelLayout:
     """How one panel lies on the card: ``cluster`` CTAs, each owning
     ``width`` neighbouring columns and running ``threads`` threads with
     ``smem_bytes`` of dynamic shared memory; the residual slice in the
-    owner's shared memory (``resid_in_smem``) or in a global workspace."""
+    owner's shared memory (``resid_in_smem``) or in a global workspace.
+    ``grid`` (K3, K4): the CTAs are one cooperative grid, not a cluster,
+    and Q lies in global memory; so do a CTA's vectors where they do not
+    fit in its shared memory (``vectors_in_smem`` false)."""
     cluster: int
     width: int
     threads: int
     resid_in_smem: bool
     smem_bytes: int
+    grid: bool = False
+    vectors_in_smem: bool = True
 
 
 def _basis_bytes(m: int, k: int, cluster: int, threads: int,
-                 itemsize: int) -> int:
-    """Shared memory every CTA needs whatever the layout: Q (m, k), the
-    (q_{i-1}, q_i) pairs, the cluster's candidate pivot columns (two
-    buffers of ``cluster`` columns; one buffer for a CTA alone), the
-    projections and one partial sum per thread."""
-    buffers = 2 if cluster > 1 else 1
-    return itemsize * (m * k + 2 * m + buffers * cluster * m + k + threads)
+                 itemsize: int, wide: bool = False, grid: bool = False,
+                 vectors_in_smem: bool = True) -> int:
+    """Shared memory every CTA needs whatever the residual's place: Q
+    (m, k), the (q_{i-1}, q_i) pairs, the cluster's candidate pivot
+    columns (two buffers of ``cluster`` columns; one buffer for a CTA
+    alone), the projections and one partial sum per thread; for K3 and K4
+    (``wide``, f64 norms) one partial norm per thread too. In the grid Q
+    and the candidates lie in global memory and a CTA holds the pivot
+    column, and without ``vectors_in_smem`` its pairs, pivot column and
+    projections lie in global memory as well."""
+    if grid:
+        vectors = 3 * m + k if vectors_in_smem else 0
+    else:
+        buffers = 2 if cluster > 1 else 1
+        vectors = m * k + buffers * cluster * m + 2 * m + k
+    return itemsize * (vectors + threads) + (8 * threads if wide else 0)
 
 
 def _threads(m: int, width: int) -> int:
@@ -96,55 +149,93 @@ def _threads(m: int, width: int) -> int:
     return max(128, split * tw)
 
 
-def kernel_fits(m: int, k: int, itemsize: int = 4) -> bool:
-    """Whether the kernels take an (m, n) panel at k steps, for any n: Q,
-    replicated in every CTA, has to fit in shared memory beside the
-    vectors of a full block; the residual may lie in global memory."""
-    return _basis_bytes(m, k, 1, MAX_THREADS, itemsize) <= SMEM_LIMIT_BYTES
+def kernel_fits(m: int, k: int, itemsize: int = 4,
+                wide: bool = False) -> bool:
+    """Whether the kernels take an (m, n) panel at k steps, for any n.
+    K1 and K2: Q, replicated in every CTA, has to fit in shared memory
+    beside the vectors of a full block; the residual may lie in global
+    memory. K3 and K4 (``wide``) take every panel: the grid layout keeps
+    Q in global memory, and a CTA's vectors too where m is large."""
+    return _basis_bytes(m, k, 1, MAX_THREADS, itemsize, wide, grid=wide,
+                        vectors_in_smem=False) <= SMEM_LIMIT_BYTES
 
 
-def layout_at(m: int, n: int, k: int, itemsize: int, cluster: int
-              ) -> PanelLayout | None:
-    """The layout of the panel over ``cluster`` CTAs: the residual slice
-    (m, ceil(n / cluster)), its last R row and its norms in shared memory
-    exactly when they fit there beside Q, else in global memory; None
-    when not even Q and the cluster's candidate columns fit."""
+def layout_at(m: int, n: int, k: int, itemsize: int, cluster: int,
+              wide: bool = False, grid: bool = False) -> PanelLayout | None:
+    """The layout of the panel over ``cluster`` CTAs (a cluster, or with
+    ``grid`` the CTAs of a cooperative grid, whose vectors lie in shared
+    memory where they fit there): the residual slice (m, ceil(n /
+    cluster)), its last R row and its norms in shared memory exactly when
+    they fit there beside the basis, else in global memory; None when not
+    even the basis fits."""
     width = -(-n // cluster)
     threads = _threads(m, width)
-    basis = _basis_bytes(m, k, cluster, threads, itemsize)
-    smem = basis + itemsize * (m * width + width) + 4 * width
+    vectors = not grid or _basis_bytes(
+        m, k, cluster, threads, itemsize, wide, grid) <= SMEM_LIMIT_BYTES
+    basis = _basis_bytes(m, k, cluster, threads, itemsize, wide, grid,
+                         vectors)
+    smem = basis + itemsize * (m * width + width) + (8 if wide else 4) * width
     if smem <= SMEM_LIMIT_BYTES:
-        return PanelLayout(cluster, width, threads, True, smem)
+        return PanelLayout(cluster, width, threads, True, smem, grid,
+                           vectors)
     if basis <= SMEM_LIMIT_BYTES:
-        return PanelLayout(cluster, width, threads, False, basis)
+        return PanelLayout(cluster, width, threads, False, basis, grid,
+                           vectors)
     return None
 
 
-@functools.lru_cache(maxsize=1024)
-def panel_layout(m: int, n: int, k: int, itemsize: int = 4
-                 ) -> PanelLayout | None:
-    """The layout of an (m, n) panel at k steps and ``itemsize`` bytes an
-    element (4 for K1, 8 for K2), or None where ``kernel_fits`` is false.
-
-    The smallest cluster whose residual slice fits in shared memory takes
-    the panel, doubled while a CTA would still hold more than
+def _cluster_layout(m: int, n: int, k: int, itemsize: int,
+                    wide: bool) -> PanelLayout | None:
+    """K1's rule: the smallest cluster whose residual slice fits in shared
+    memory takes the panel, doubled while a CTA would still hold more than
     ``_SPLIT_ELEMENTS`` residual elements. A panel whose slice fits no
     cluster keeps its residual in global memory and takes the largest
-    cluster that leaves a CTA at least a warp of columns."""
-    if not kernel_fits(m, k, itemsize):
-        return None
+    cluster that leaves a CTA at least a warp of columns (K1, K2), or
+    has no cluster layout (K3, K4: it goes to the grid)."""
     layouts = [layout for cluster in CLUSTER_SIZES
-               if (layout := layout_at(m, n, k, itemsize, cluster))]
+               if (layout := layout_at(m, n, k, itemsize, cluster, wide))]
     chosen = None
     for layout in layouts:
         if layout.resid_in_smem:
             chosen = layout
             if m * layout.width <= _SPLIT_ELEMENTS:
                 break
+    if chosen is None and not wide:
+        wide_slices = [layout for layout in layouts
+                       if layout.width >= 32 or layout.cluster == 1]
+        chosen = wide_slices[-1]
+    return chosen
+
+
+def _grid_layout(m: int, n: int, k: int, itemsize: int) -> PanelLayout:
+    """K3's and K4's layout for a panel that no cluster holds: the fewest
+    CTAs (at most ``MAX_GRID``) whose residual slices all fit in shared
+    memory, with no CTA past the last column; where even ``MAX_GRID``
+    slices do not fit, ``MAX_GRID`` CTAs (or one a column) with the
+    residual in global memory. Fewer CTAs read Q from L2 fewer times a
+    step."""
+    for cluster in range(1, min(MAX_GRID, n) + 1):
+        layout = layout_at(m, n, k, itemsize, cluster, True, grid=True)
+        if layout.resid_in_smem:
+            break
+    cluster = -(-n // layout.width)
+    return layout_at(m, n, k, itemsize, cluster, True, grid=True)
+
+
+@functools.lru_cache(maxsize=1024)
+def panel_layout(m: int, n: int, k: int, itemsize: int = 4,
+                 wide: bool = False) -> PanelLayout | None:
+    """The layout of an (m, n) panel at k steps, ``itemsize`` bytes an
+    element, for K1 and K2 or, with ``wide``, for K3 and K4; None where
+    ``kernel_fits`` is false (never for K3 and K4).
+
+    A cluster where one holds the panel (``_cluster_layout``); K3 and K4
+    run any other panel as one cooperative grid (``_grid_layout``)."""
+    if not kernel_fits(m, k, itemsize, wide):
+        return None
+    chosen = _cluster_layout(m, n, k, itemsize, wide)
     if chosen is None:
-        wide = [layout for layout in layouts
-                if layout.width >= 32 or layout.cluster == 1]
-        chosen = wide[-1]
+        chosen = _grid_layout(m, n, k, itemsize)
     return chosen
 
 
@@ -156,26 +247,42 @@ def abs2(x: torch.Tensor) -> torch.Tensor:
     return x.abs() ** 2
 
 
-def qrcp_panel_plain(a: torch.Tensor, k: int, used: torch.Tensor | None = None):
+def qrcp_panel_plain(a: torch.Tensor, k: int, used: torch.Tensor | None = None,
+                     norms: str = "downdate"):
     """k-step pivoted Gram–Schmidt QRCP of ``a`` (..., m, n), any float or
     complex dtype: the port of ``ops.pivoted_qr._qrcp_gs`` plus the
-    kernel's ``used`` mask (columns marked there are never pivots).
+    kernel's ``used`` mask (columns marked there are never pivots), and
+    the plain version of all four kernels.
+
+    ``norms`` is the rule for the column norms the pivot is taken by:
+    ``"downdate"`` (``_qrcp_gs``'s and K1's: the squared norms less
+    |r_row|^2, carried over every step) or ``"recompute"`` (every norm
+    taken afresh from the residual each step: see ``qrcp_core_plain``).
 
     Returns ``(q, r_orig, piv)``: q (..., m, k), r_orig (..., k, n) in
     original column order, piv (..., k) int64 in selection order.
     """
+    if norms not in NORM_RULES:
+        raise ValueError(f"norms must be one of {list(NORM_RULES)}, got "
+                         f"{norms!r}")
+    recompute = norms == "recompute"
     *batch, m, n = a.shape
     rdt = real_dtype(a.dtype)
     resid = a.clone()
-    norms = abs2(a).sum(-2).to(rdt)
+    taken = torch.zeros((*batch, n), dtype=torch.bool, device=a.device)
     if used is not None:
-        norms = torch.where(used.to(a.device) > 0, -1.0, norms)
+        taken = taken | (used.to(a.device) > 0)
+    nrm = None if recompute else torch.where(
+        taken, -1.0, abs2(a).sum(-2).to(rdt))
     q = a.new_zeros((*batch, m, k))
     r = a.new_zeros((*batch, k, n))
     piv = torch.zeros((*batch, k), dtype=torch.int64, device=a.device)
     for i in range(k):
+        if recompute:
+            nrm = torch.linalg.vector_norm(resid, dim=-2).masked_fill(
+                taken, -1.0)
         # torch.argmax returns the first maximal index, as jnp.argmax does.
-        j = torch.argmax(norms, dim=-1, keepdim=True)           # (..., 1)
+        j = torch.argmax(nrm, dim=-1, keepdim=True)             # (..., 1)
         v = torch.take_along_dim(resid, j.unsqueeze(-2), dim=-1)[..., 0]
         v = v - (q @ (q.mH @ v.unsqueeze(-1)))[..., 0]
         nv = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
@@ -183,15 +290,40 @@ def qrcp_panel_plain(a: torch.Tensor, k: int, used: torch.Tensor | None = None):
         qi = v * inv.to(a.dtype)
         r_row = (qi.conj().unsqueeze(-2) @ resid)[..., 0, :]
         resid = resid - qi.unsqueeze(-1) * r_row.unsqueeze(-2)
-        norms = torch.where(norms < 0, norms,
-                            torch.clamp(norms - abs2(r_row), min=0.0))
-        norms = norms.scatter(-1, j, -1.0)
+        if recompute:
+            taken = taken.scatter(-1, j, True)
+        else:
+            nrm = torch.where(nrm < 0, nrm,
+                              torch.clamp(nrm - abs2(r_row), min=0.0))
+            nrm = nrm.scatter(-1, j, -1.0)
         q[..., :, i] = qi
         r[..., i, :] = r_row
         piv[..., i] = j[..., 0]
     return q, r, piv
 
 
+def qrcp_core_plain(b: torch.Tensor):
+    """min(m, n)-step column-pivoted Gram–Schmidt QR of ``b`` (..., m, n)
+    with the column norms recomputed from the residual each step: the
+    pivot rule of the port's tol <= 1e-8 ID cores
+    (``highacc_id._core_qrcp``), and K3's and K4's ``"recompute"`` rule.
+
+    The pivot is the column of largest residual norm, as in ``?geqp3``.
+    The downdated rule (``qrcp_panel_plain``'s default) carries the
+    squared norms over the steps, and at tol 1e-8 the squared norms it
+    subtracts cancel to roundoff: on a captured core of ``hilbert(1024)``
+    it left ``?geqp3``'s pivots at step 14 of 16 (Laplace block, step 97
+    of 143). ``?geqp3`` recomputes a norm whenever its downdate has
+    cancelled that far. One reorthogonalization pass per pivot column.
+
+    Returns ``(q, r_orig, piv)`` as ``qrcp_panel_plain`` does.
+    """
+    return qrcp_panel_plain(b.resolve_conj(), min(b.shape[-2:]),
+                            norms="recompute")
+
+
+#: Whether each C entry point is one of K3 and K4's.
+_WIDE_ENTRIES = {spec.entry: spec.wide for spec in KERNELS.values()}
 _libs: dict = {}
 _lib_lock = threading.Lock()
 #: Preprocessor names the sources are built with; ``sweep.py --clocks``
@@ -215,7 +347,8 @@ def build() -> dict[str, tuple[Path, str]]:
     empty for a library that was found)."""
     header = _HEADER.read_bytes()
     out, running = {}, []
-    for entry, source in _SOURCES.items():
+    for spec in KERNELS.values():
+        entry, source = spec.entry, _CSRC / spec.source
         digest = hashlib.sha256(source.read_bytes() + header + " ".join(
             _build_defines).encode()).hexdigest()[:12]
         lib = _BUILD_DIR / f"lib{source.stem}_{digest}.so"
@@ -251,8 +384,9 @@ def _entry(name: str):
         if name not in _libs:
             lib = ctypes.CDLL(str(build()[name][0]))
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
-                ctypes.c_void_p]
+            pointers, ints = (11, 10) if _WIDE_ENTRIES[name] else (7, 8)
+            fn.argtypes = [ctypes.c_void_p] * pointers + [
+                ctypes.c_int] * ints + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _libs[name] = (lib, fn)
         return _libs[name][1]
@@ -265,13 +399,17 @@ _LAUNCH_ERRORS = {
 }
 
 
-def _panel(wrapper, entry: str, a: torch.Tensor, k: int,
-           used: torch.Tensor | None, layout: PanelLayout | None = None):
-    """What ``qrcp_panel`` and ``qrcp_panel_complex`` share: the checks,
-    the plain version on the CPU, the launch of ``entry`` on the card.
+def _panel(wrapper, a: torch.Tensor, k: int, used: torch.Tensor | None,
+           layout: PanelLayout | None = None, norms: str | None = None):
+    """What the four wrappers share: the checks, the plain version on the
+    CPU, the launch of the wrapper's kernel (``KERNELS``) on the card.
     ``layout`` replaces the rule's choice (the kernel tests and the layout
-    sweep force cluster sizes with it)."""
+    sweep force cluster sizes with it). ``norms`` is K3's and K4's norm
+    rule (None for K1, K2)."""
     name = wrapper.__name__
+    spec = KERNELS[name]
+    if a.dtype != spec.dtype:
+        raise ValueError(f"{name} is {spec.label}-only, got {a.dtype}")
     if a.ndim not in (2, 3):
         raise ValueError(f"{name} expects (m, n) or (B, m, n), got "
                          f"shape {tuple(a.shape)}")
@@ -283,8 +421,12 @@ def _panel(wrapper, entry: str, a: torch.Tensor, k: int,
     if used is not None and tuple(used.shape) not in ((n,), (*batch, n)):
         raise ValueError(f"used must have shape ({n},) or "
                          f"{(*batch, n)}, got {tuple(used.shape)}")
+    wide = spec.wide
+    if wide and norms not in NORM_RULES:
+        raise ValueError(f"{name}: norms must be one of {list(NORM_RULES)}, "
+                         f"got {norms!r}")
     if a.device.type == "cpu":
-        q, r, piv = qrcp_panel_plain(a, k, used)
+        q, r, piv = qrcp_panel_plain(a, k, used, norms or "downdate")
         return q, r, piv.to(torch.int32)
     if a.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, got {a.device}")
@@ -292,11 +434,11 @@ def _panel(wrapper, entry: str, a: torch.Tensor, k: int,
         raise ValueError(f"{name} needs a contiguous panel (and no lazy "
                          f"conjugate: call resolve_conj())")
     if layout is None:
-        layout = panel_layout(m, n, k, a.element_size())
+        layout = panel_layout(m, n, k, a.element_size(), wide)
     if layout is None:
+        need = _basis_bytes(m, k, 1, MAX_THREADS, a.element_size())
         raise ValueError(
-            f"{name}: Q of a ({m}, {n}) panel at k={k} needs "
-            f"{_basis_bytes(m, k, 1, MAX_THREADS, a.element_size())} bytes of "
+            f"{name}: a ({m}, {n}) panel at k={k} needs {need} bytes of "
             f"shared memory, more than the {SMEM_LIMIT_BYTES} the kernel "
             f"may request")
     nb = batch[0] if batch else 1
@@ -304,28 +446,55 @@ def _panel(wrapper, entry: str, a: torch.Tensor, k: int,
         if used.device != a.device:
             raise ValueError("used must be on the panel's device")
         used = used.to(torch.float32).expand(*batch, n).contiguous()
-    fn = _entry(entry)
+    fn = _entry(spec.entry)
     q = torch.empty((*batch, m, k), dtype=a.dtype, device=a.device)
     r = torch.empty((*batch, k, n), dtype=a.dtype, device=a.device)
     piv = torch.empty((*batch, k), dtype=torch.int32, device=a.device)
-    resid = norms = None
+    resid = norm_ws = None
     if not layout.resid_in_smem:
         resid = torch.empty_like(a)
-        norms = torch.empty((*batch, n), dtype=torch.float32, device=a.device)
+        norm_ws = torch.empty((*batch, n), dtype=real_dtype(a.dtype)
+                              if wide else torch.float32, device=a.device)
+    # (first panel, panels) of each launch: the grid runs one panel a
+    # launch, as all of its CTAs must be resident at once
+    launches = ([(p, 1) for p in range(nb)] if layout.grid else [(0, nb)])
+    grid_ws = [None] * 4
+    if layout.grid:
+        # Q, the candidates and their bests, and the CTAs' vectors where
+        # they do not fit in shared memory: (cluster, vec_stride(m, k))
+        grid_ws = [torch.empty((k, m), dtype=a.dtype, device=a.device),
+                   torch.empty((2, layout.cluster, m), dtype=a.dtype,
+                               device=a.device),
+                   torch.empty((2, layout.cluster, 2), dtype=torch.float64,
+                               device=a.device),
+                   None if layout.vectors_in_smem else torch.empty(
+                       (layout.cluster, (3 * m + k + 1) // 2 * 2),
+                       dtype=a.dtype, device=a.device)]
+
+    def ptr(x, p):
+        return None if x is None else (x[p] if batch else x).data_ptr()
+
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(a.data_ptr(), used.data_ptr() if used is not None else None,
-                 q.data_ptr(), r.data_ptr(), piv.data_ptr(),
-                 resid.data_ptr() if resid is not None else None,
-                 norms.data_ptr() if norms is not None else None,
-                 nb, m, n, k, layout.cluster, layout.threads,
-                 int(layout.resid_in_smem), layout.smem_bytes, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"{name}: kernel launch failed for {layout}: "
-            f"{_LAUNCH_ERRORS.get(err, f'CUDA error {err}')}")
-    wrapper.launch_count += 1
-    wrapper.launched_shapes.add(((nb, m, n), k, used is not None))
+        for first, count in launches:
+            args = [ptr(x, first) for x in (a, used, q, r, piv, resid,
+                                            norm_ws)]
+            if wide:
+                args += [x.data_ptr() if x is not None else None
+                         for x in grid_ws]
+                tail = [int(layout.resid_in_smem), int(layout.grid),
+                        NORM_RULES[norms]]
+            else:
+                tail = [int(layout.resid_in_smem)]
+            err = fn(*args, count, m, n, k, layout.cluster, layout.threads,
+                     *tail, layout.smem_bytes, stream)
+            if err != 0:
+                raise RuntimeError(
+                    f"{name}: kernel launch failed for {layout}: "
+                    f"{_LAUNCH_ERRORS.get(err, f'CUDA error {err}')}")
+            wrapper.launch_count += 1
+    key = ((nb, m, n), k, used is not None)
+    wrapper.launched_shapes.add((*key, norms) if wide else key)
     return q, r, piv
 
 
@@ -340,9 +509,7 @@ def qrcp_panel(a: torch.Tensor, k: int, *, used: torch.Tensor | None = None):
     launches the kernel (K1, one cluster of CTAs per panel, laid out by
     ``panel_layout``) or raises.
     """
-    if a.dtype != torch.float32:
-        raise ValueError(f"qrcp_panel is f32-only, got {a.dtype}")
-    return _panel(qrcp_panel, "rc_qrcp_panel_f32", a, k, used)
+    return _panel(qrcp_panel, a, k, used)
 
 
 def qrcp_panel_complex(a: torch.Tensor, k: int, *,
@@ -355,15 +522,37 @@ def qrcp_panel_complex(a: torch.Tensor, k: int, *,
     output layouts of the planar TPU kernel, and the card reads the
     interleaved complex64 tensor as it is.
     """
-    if a.dtype != torch.complex64:
-        raise ValueError(f"qrcp_panel_complex is c64-only, got {a.dtype}")
-    return _panel(qrcp_panel_complex, "rc_qrcp_panel_c64", a, k, used)
+    return _panel(qrcp_panel_complex, a, k, used)
 
 
-qrcp_panel.launch_count = 0
-qrcp_panel_complex.launch_count = 0
-#: The distinct ``((panels, m, n), k, masked)`` each wrapper has launched
-#: its kernel at, beside the count: what a check against the plain version
-#: must cover.
-qrcp_panel.launched_shapes = set()
-qrcp_panel_complex.launched_shapes = set()
+def qrcp_panel_f64(a: torch.Tensor, k: int, *,
+                   used: torch.Tensor | None = None, norms: str = "downdate"):
+    """The ``qrcp_panel`` contract for an f64 panel or batch of panels,
+    with the norm rule ``norms``: ``"downdate"`` (K1's rule, the JAX
+    package's ``_qrcp_gs``) or ``"recompute"`` (each column's norm summed
+    afresh every step, the pivots of ``?geqp3`` on the tol <= 1e-8 ID
+    cores); plain version ``qrcp_panel_plain`` under the same rule. A CUDA
+    tensor launches K3 (a cluster per panel, or a cooperative grid a
+    panel where Q does not fit a cluster: every panel has a layout) or
+    raises.
+    """
+    return _panel(qrcp_panel_f64, a, k, used, norms=norms)
+
+
+def qrcp_panel_c128(a: torch.Tensor, k: int, *,
+                    used: torch.Tensor | None = None, norms: str = "downdate"):
+    """``qrcp_panel_f64`` for a complex128 panel or batch of panels
+    (``r_orig[i, c] = q[:, i]^H a[:, c]``, the norms real): a CUDA tensor
+    launches K4 or raises."""
+    return _panel(qrcp_panel_c128, a, k, used, norms=norms)
+
+
+#: The wrapper of each floating dtype.
+PANEL_KERNELS = {spec.dtype: globals()[name] for name, spec in KERNELS.items()}
+
+for _wrapper in PANEL_KERNELS.values():
+    _wrapper.launch_count = 0
+    #: The distinct ``((panels, m, n), k, masked)`` (and, for K3 and K4,
+    #: the norm rule) each wrapper has launched its kernel at, beside the
+    #: count: what a check against the plain version must cover.
+    _wrapper.launched_shapes = set()

@@ -1,16 +1,20 @@
-"""Times K1 and K2 at every cluster size on one NVIDIA card.
+"""Times K1-K4 at every cluster size on one NVIDIA card.
 
     python3 -m rusty_compression_tpu_torch.ops.kernels.sweep [--quick | --clocks]
 
 For each panel shape of the main paths and each cluster size, the layout
 ``layout_at`` gives is forced on the wrapper; the result is held against
-the plain version (pivots equal, q and r within 1e-4) and timed:
+the plain version (pivots equal, q and r within 1e-4; 1e-9 in f64 and
+c128) and timed:
 ``device_ms`` is the mean of 10 launches queued behind a busy card, the
 kernel alone without the wrapper's host time. One JSON line per (kernel, shape, cluster
 size), with ``chosen`` marking the size ``panel_layout`` picks; the first
-line carries the card's name and power limit and both ptxas reports. The
-layout rule's ``_SPLIT_ELEMENTS`` was set from this table. ``--quick``
-runs one launch per layout and no timing: the first check of a new build.
+line carries the card's name and power limit and the ptxas reports. The
+layout rule's ``_SPLIT_ELEMENTS`` was set from this table. K3 and K4 (f64,
+c128) run each shape with its norm rule at every cluster that holds Q
+and the residual in shared memory, and at the layout the rule picks (the
+cooperative grid where no cluster holds the panel). ``--quick`` runs one
+launch per layout and no timing: the first check of a new build.
 
 ``--clocks`` builds the kernels with ``-DRC_QRCP_CLOCKS`` instead and
 prints, for the layout ``panel_layout`` picks at each shape, the cycles a
@@ -38,6 +42,24 @@ SHAPES = {
         ((53, 8192), 43, False), ((43, 8192), 43, False),
         ((136, 256), 128, True), ((37, 301), 29, True),
         ((8, 24, 2048), 16, False), ((53, 8191), 43, True)],
+    # (shape, k, mask, norm rule): the 1e-8 ID cores of configs 2h and 4h
+    # and of the high-accuracy ID example, config 2's f64 sketch
+    "qrcp_panel_f64": [
+        ((32, 1024), 32, False, "recompute"),
+        ((72, 1024), 64, True, "downdate"),
+        ((256, 8192), 256, False, "recompute"),
+        ((169, 8192), 169, False, "recompute"),
+        ((453, 1500), 453, False, "recompute"),
+        ((37, 301), 29, True, "downdate"),
+        # gs over the JAX package's 12 MiB working set; the second keeps
+        # its CTAs' vectors in global memory
+        ((4096, 512), 64, False, "downdate"),
+        ((16384, 58), 50, False, "downdate")],
+    "qrcp_panel_c128": [
+        ((96, 2048), 96, False, "recompute"),
+        ((37, 301), 29, True, "downdate"),
+        ((3, 24, 2048), 16, False, "downdate"),
+        ((8192, 40), 32, False, "downdate")],
 }
 
 
@@ -94,33 +116,40 @@ def main(argv) -> int:
                for entry, (_, report) in k1.build().items()}
     print(json.dumps({"card": card, "torch": torch.__version__,
                       "ptxas": reports}), flush=True)
-    entries = {"qrcp_panel": "rc_qrcp_panel_f32",
-               "qrcp_panel_complex": "rc_qrcp_panel_c64"}
     gen = torch.Generator(device="cuda").manual_seed(0)
     failed = 0
     for name, shapes in SHAPES.items():
-        wrapper = getattr(k1, name)
-        for shape, k, masked in shapes:
+        wrapper, spec = getattr(k1, name), k1.KERNELS[name]
+        dtype, wide = spec.dtype, spec.wide
+        for shape, k, masked, *rule in shapes:
+            norms = rule[0] if rule else None
             *_, m, n = shape
-            a = torch.randn(shape, generator=gen, device="cuda")
-            if name.endswith("complex"):
+            real = dtype.to_real() if dtype.is_complex else dtype
+            a = torch.randn(shape, generator=gen, device="cuda", dtype=real)
+            if dtype.is_complex:
                 a = torch.complex(a, torch.randn(shape, generator=gen,
-                                                 device="cuda"))
-            a = a * torch.logspace(0.0, -1.0, n, device="cuda")
+                                                 device="cuda", dtype=real))
+            a = a * torch.logspace(0.0, -1.0, n, device="cuda", dtype=real)
             used = None
             if masked:
                 used = torch.zeros(n, dtype=torch.bool, device="cuda")
                 used[::7] = True
-            q0, r0, piv0 = k1.qrcp_panel_plain(a, k, used)
-            chosen = k1.panel_layout(m, n, k, a.element_size())
-            for cluster in k1.CLUSTER_SIZES:
-                layout = k1.layout_at(m, n, k, a.element_size(), cluster)
+            q0, r0, piv0 = k1.qrcp_panel_plain(a, k, used,
+                                               norms or "downdate")
+            chosen = k1.panel_layout(m, n, k, a.element_size(), wide)
+            layouts = [k1.layout_at(m, n, k, a.element_size(), cluster,
+                                    wide)
+                       for cluster in k1.CLUSTER_SIZES]
+            if wide:   # clusters that hold the panel, and the rule's pick
+                layouts = [x for x in layouts if x and x.resid_in_smem]
+                layouts += [chosen] if chosen not in layouts else []
+            for layout in layouts:
                 if layout is None or (clocks and layout != chosen):
                     continue
                 run = lambda: k1._panel(  # noqa: E731
-                    wrapper, entries[name], a, k, used, layout)
+                    wrapper, a, k, used, layout, norms)
                 row = {"kernel": name, "shape": list(shape), "k": k,
-                       "chosen": layout == chosen,
+                       "norms": norms, "chosen": layout == chosen,
                        **dataclasses.asdict(layout)}
                 try:
                     q, r, piv = run()
@@ -132,13 +161,13 @@ def main(argv) -> int:
                 row["pivots_equal"] = torch.equal(piv.long(), piv0)
                 row["max_abs_err"] = max(float((q - q0).abs().max()),
                                          float((r - r0).abs().max()))
-                ok = row["pivots_equal"] and row["max_abs_err"] <= 1e-4
+                ok = row["pivots_equal"] and row["max_abs_err"] <= spec.tol
                 failed += not ok
                 if clocks:
-                    read_clocks(k1, entries[name], reset=True)
+                    read_clocks(k1, spec.entry, reset=True)
                     run()
                     torch.cuda.synchronize()
-                    cycles = read_clocks(k1, entries[name], reset=False)
+                    cycles = read_clocks(k1, spec.entry, reset=False)
                     row["cycles_per_step"] = {
                         part: round(count / k)
                         for part, count in zip(CLOCK_PARTS, cycles)}

@@ -2,13 +2,14 @@
 
 Modes:
 
-* ``"gs"`` — pivoted Gram–Schmidt QRCP in plain PyTorch: the classical
-  max-residual-norm pivot rule with norm downdating and one
-  reorthogonalization pass (``qrcp_panel_plain``, the port of the JAX
-  ``_qrcp_gs``).
+* ``"gs"`` — pivoted Gram–Schmidt QRCP, the port of the JAX ``_qrcp_gs``:
+  the classical max-residual-norm pivot rule with norm downdating and one
+  reorthogonalization pass. For an f64 or c128 tensor on the card, one
+  hand-written CUDA kernel (K3, K4, ``ops/kernels/qrcp.py``), which takes
+  every shape; otherwise in plain PyTorch (``qrcp_panel_plain``).
 * ``"kernel"`` — the same pivot rule in one hand-written CUDA kernel
-  (K1 for f32, K2 for c64, ``ops/kernels/qrcp.py``); takes the place of
-  the JAX package's ``"pallas"`` mode.
+  (K1 for f32, K2 for c64); takes the place of the JAX package's
+  ``"pallas"`` mode, and like it takes f32 and c64 only.
 * ``"blocked"`` — randomized blocked RRQR in the HQRRP family
   (Martinsson/Quintana-Ortí/Heavner/van de Geijn, arXiv:1512.02671): a
   Gaussian sketch ``S = G @ A`` selects a whole panel of pivots at once by
@@ -31,17 +32,47 @@ import torch
 from ..utils.dtypes import real_dtype
 from ..utils.precision import with_precision
 from ..utils.random_matrix import random_gaussian
-from .kernels.qrcp import (abs2, kernel_fits, qrcp_panel, qrcp_panel_complex,
-                           qrcp_panel_plain)
+from .kernels.qrcp import (PANEL_KERNELS, WIDE_DTYPES, abs2, kernel_fits,
+                           qrcp_panel, qrcp_panel_complex, qrcp_panel_plain)
 
 __all__ = ["pivoted_qr", "pivoted_lq"]
 
-_KERNEL_DTYPES = (torch.float32, torch.complex64)
+#: The dtypes of the ``"kernel"`` mode, the JAX package's ``"pallas"``.
+_FUSED_DTYPES = (torch.float32, torch.complex64)
 
 
 def _panel_kernel(dtype: torch.dtype):
-    """The fused panel wrapper for ``dtype``: K1 for f32, K2 for c64."""
-    return qrcp_panel_complex if dtype == torch.complex64 else qrcp_panel
+    """The panel wrapper for ``dtype``: K1 for f32, K2 for c64, K3 for f64,
+    K4 for c128; any other dtype gets K1's wrapper, which refuses it."""
+    return PANEL_KERNELS.get(dtype, qrcp_panel)
+
+
+def _fits(m: int, k: int, dtype: torch.dtype) -> bool:
+    """``kernel_fits`` for ``dtype``'s kernel (always true for K3, K4)."""
+    return kernel_fits(m, k, dtype.itemsize, dtype in WIDE_DTYPES)
+
+
+def _gs(a: torch.Tensor, k: int):
+    """The ``"gs"`` mode, the JAX package's ``_qrcp_gs``: for an f64 / c128
+    tensor on the card K3 / K4 over the whole stack, else the plain loop.
+    Returns ``(q, r_orig, piv)`` with piv int64."""
+    if (a.device.type == "cuda" and a.dtype in WIDE_DTYPES and k > 0
+            and a.numel() > 0):
+        return _over_stack(_panel_kernel(a.dtype), a, k)
+    return qrcp_panel_plain(a, k)
+
+
+def _over_stack(wrapper, a: torch.Tensor, k: int):
+    """``wrapper`` (a panel kernel's) over ``a`` (..., m, n): any leading
+    dimensions flattened into one stack (one launch, or one a panel on the
+    grid layout), the results shaped back; piv int64."""
+    *batch, m, n = a.shape
+    panels = a.resolve_conj().contiguous()
+    if len(batch) > 1:
+        panels = panels.reshape(-1, m, n)
+    q, r_orig, piv = wrapper(panels, k)
+    return (q.reshape(*batch, m, k), r_orig.reshape(*batch, k, n),
+            piv.long().reshape(*batch, k))
 
 
 def _safe_inv(x: torch.Tensor) -> torch.Tensor:
@@ -106,12 +137,11 @@ def _panel_qr(panel: torch.Tensor, method: str) -> torch.Tensor:
 
 def _pivot_rule(pivot_kernel: str, dtype: torch.dtype, device: torch.device,
                 l: int, b: int) -> str:
-    """Resolve ``pivot_kernel``: ``"auto"`` is the fused kernel for f32 and
-    c64 on the card when the (l, c) shortlist's Q fits it, else the plain
-    rule."""
+    """Resolve ``pivot_kernel``: ``"auto"`` is the kernel (K1-K4 by dtype)
+    on the card when it takes the (l, c) shortlist, else the plain rule."""
     if pivot_kernel == "auto":
-        fits = (device.type == "cuda" and dtype in _KERNEL_DTYPES
-                and kernel_fits(l, b, dtype.itemsize))
+        fits = (device.type == "cuda" and dtype in PANEL_KERNELS
+                and _fits(l, b, dtype))
         return "kernel" if fits else "plain"
     if pivot_kernel not in ("kernel", "plain"):
         raise ValueError(f"unknown pivot_kernel {pivot_kernel!r}: expected "
@@ -248,9 +278,11 @@ def _resolve_mode(mode: str, m: int, n: int, k: int, dtype: torch.dtype,
     """Resolve ``"auto"`` with the JAX package's thresholds: the fused
     kernel where the JAX package picked Pallas (small rank or width, on
     the accelerator, a working set under its 12 MiB bound and a Q that
-    fits the kernel), the plain loop for f64/c128, the CPU or a larger
-    working set up to n = 512, the blocked RRQR beyond. A whole 2048^2
-    f32 block at k = 16 (32.3 MiB) goes blocked, as in the JAX package.
+    fits the kernel), ``"gs"`` for f64/c128, the CPU or a larger working
+    set up to n = 512, the blocked RRQR beyond. A whole 2048^2 f32 block
+    at k = 16 (32.3 MiB) goes blocked, as in the JAX package. On the card
+    ``"gs"`` in f64/c128, and the blocked route's pivot rule on its
+    sketch, run K3/K4.
 
     In the small-rank branch the JAX package means the exact pivot rule
     (its 12 MB fit rule covers a 1024^2 f32 matrix at k = 64, whose Q does
@@ -266,9 +298,9 @@ def _resolve_mode(mode: str, m: int, n: int, k: int, dtype: torch.dtype,
     if mode != "auto":
         return mode
     if k <= 64 or n <= 128:
-        if (dtype in _KERNEL_DTYPES and device.type == "cuda"
+        if (dtype in _FUSED_DTYPES and device.type == "cuda"
                 and _working_set_fits(m, n, k, dtype.itemsize)
-                and kernel_fits(m, k, dtype.itemsize)):
+                and _fits(m, k, dtype)):
             return "kernel"
         if n <= 512:
             return "gs"
@@ -296,8 +328,8 @@ def pivoted_qr(a: torch.Tensor, max_rank: int | None = None, *,
         (Householder), ``"scholqr3"`` (all-GEMM shifted CholeskyQR3 with a
         Householder redo of unhealthy panels) or ``"auto"`` (Householder).
       pivot_kernel: blocked-mode pivot selection on the sketch —
-        ``"kernel"`` (K1/K2, pivots only), ``"plain"`` (the PyTorch loop)
-        or ``"auto"`` (the kernel for f32/c64 on the card when it fits).
+        ``"kernel"`` (K1-K4 by dtype, pivots only), ``"plain"`` (the
+        PyTorch loop) or ``"auto"`` (the kernel on the card when it fits).
       pivot_candidates: blocked-mode tournament shortlist factor (0 runs
         the pivot rule on all n columns; see
         ``_qrcp_blocked_from_gaussian``). ``None`` is 0 where ``"auto"``
@@ -321,10 +353,12 @@ def pivoted_qr(a: torch.Tensor, max_rank: int | None = None, *,
         pivot_candidates = 0 if small_rank else 2
     mode = _resolve_mode(mode, m, n, k, a.dtype, a.device)
     if mode == "gs":
-        q, r_orig, piv = qrcp_panel_plain(a, k)
+        q, r_orig, piv = _gs(a, k)
     elif mode == "kernel":
-        # a lazy conjugate (pivoted_lq's a.mH) has to be written out
-        q, r_orig, piv = _panel_kernel(a.dtype)(
+        # K1 or K2 (f32-only / c64-only, as the JAX package's Pallas
+        # kernels); a lazy conjugate (pivoted_lq's a.mH) is written out
+        fused = qrcp_panel_complex if a.dtype == torch.complex64 else qrcp_panel
+        q, r_orig, piv = fused(
             a.resolve_conj().contiguous(), k)
         piv = piv.long()
     elif mode == "blocked":

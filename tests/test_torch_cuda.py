@@ -1,4 +1,4 @@
-"""K1 and K2 on the card: the CUDA kernels against their plain version, and
+"""K1-K4 on the card: the CUDA kernels against their plain versions, and
 the routes that launch them; the tol <= 1e-8 pipelines in f64/c128; the
 block stream, its pinned packing and checkpoints.
 
@@ -8,8 +8,9 @@ with a card and no JAX it runs with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 
 Tolerances: pivots exactly equal; q and r to 1e-4 absolute (f32 and c64,
-another summation order). Two launches on one panel are bitwise equal
-(no atomics, fixed reduction orders).
+another summation order), 1e-9 for K3 and K4 (f64 and c128, the same).
+Two launches on one panel are bitwise equal (no atomics, fixed reduction
+orders).
 """
 
 import numpy as np
@@ -253,11 +254,11 @@ def test_forced_cluster_sizes(k1, kind, cluster):
     CTAs (n = 5 at 8 and 16 CTAs: some CTAs own no column)."""
     import torch
 
-    make, name, entry, itemsize = _KERNELS[kind]
+    make, name, _, itemsize = _KERNELS[kind]
     for shape, k in (((37, 301), 29), ((33, 5), 5)):
         a = make(shape)
         layout = k1.layout_at(*shape, k, itemsize, cluster)
-        got = k1._panel(getattr(k1, name), entry, a, k, None, layout)
+        got = k1._panel(getattr(k1, name), a, k, None, layout)
         torch.cuda.synchronize()
         _assert_matches_plain(k1, got, a, k, None)
 
@@ -937,3 +938,139 @@ def test_example_twin_on_the_card(k1, name):
         assert (got["admissible"], got["dense"]) == (302, 618)
         assert np.abs(np.subtract(got["ranks"], want["ranks"])).max() <= 8
         assert got["matvec_rel_err"] < 50e-6
+
+
+# K3 and K4: (shape, k, mask, norm rule). (32, 1024) is config 2h's core
+# (a cluster), (256, 8192) config 4h's (the cooperative grid, Q in global
+# memory); a ragged masked grid and a masked stack; a tall panel whose CTA
+# vectors lie in global memory.
+_WIDE_CASES = [
+    ((32, 1024), 32, False, "downdate"), ((32, 1024), 32, False, "recompute"),
+    ((256, 8192), 256, False, "downdate"),
+    ((256, 8192), 256, False, "recompute"),
+    ((169, 8191), 100, True, "recompute"),
+    ((2, 40, 600), 30, True, "recompute"),
+    ((16384, 58), 40, True, "downdate"),
+]
+
+
+def _wide_panel(shape, dtype_name, seed=0):
+    import torch
+
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal(shape)
+    if dtype_name == "complex128":
+        a = a + 1j * rng.standard_normal(shape)
+    return torch.tensor(a * np.geomspace(1.0, 0.1, shape[-1]),
+                        dtype=getattr(torch, dtype_name), device="cuda")
+
+
+@pytest.mark.parametrize("dtype_name", ["float64", "complex128"])
+@pytest.mark.parametrize("shape,k,masked,norms", _WIDE_CASES)
+def test_wide_kernels_match_plain_and_repeat(k1, dtype_name, shape, k,
+                                             masked, norms):
+    """Each norm rule of K3 / K4 against its plain version: pivots equal,
+    q and r within 1e-9, one launch counted, two launches bitwise."""
+    import torch
+
+    wrapper = (k1.qrcp_panel_c128 if dtype_name == "complex128"
+               else k1.qrcp_panel_f64)
+    a = _wide_panel(shape, dtype_name)
+    used = None
+    if masked:
+        used = torch.zeros(shape[-1], dtype=torch.bool, device="cuda")
+        used[::7] = True
+    before = wrapper.launch_count
+    got = wrapper(a, k, used=used, norms=norms)
+    torch.cuda.synchronize()
+    layout = k1.panel_layout(*shape[-2:], k, a.element_size(), True)
+    panels = shape[0] if len(shape) == 3 else 1
+    assert wrapper.launch_count == before + (panels if layout.grid else 1)
+    q0, r0, piv0 = k1.qrcp_panel_plain(a, k, used, norms)
+    assert torch.equal(got[2].long(), piv0)
+    assert float((got[0] - q0).abs().max()) <= 1e-9
+    assert float((got[1] - r0).abs().max()) <= 1e-9
+    again = wrapper(a, k, used=used, norms=norms)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("complex_", [False, True])
+def test_core_qrcp_on_the_card_against_geqp3(k1, complex_):
+    """``_core_qrcp`` of a captured core launches K3 / K4 once (norm rule
+    ``recompute``); its pivots up to the rank equal scipy's ``?geqp3`` on
+    the host and the plain rule's on the card, its R within 1e-12 of the
+    plain rule's largest entry."""
+    import scipy.linalg
+    import torch
+
+    import rusty_compression_tpu_torch as rt
+    from rusty_compression_tpu_torch.highacc_id import (_core_qrcp,
+                                                        _truncation_rank)
+    from rusty_compression_tpu_torch.ops.pivoted_qr import _full_permutation
+
+    wrapper = k1.qrcp_panel_c128 if complex_ else k1.qrcp_panel_f64
+    a = torch.tensor(_decaying(73, 384, 1024, complex_=complex_),
+                     device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    _, b, _, captured = rt.refined_capture(a, g, tol=1e-8)
+    before = wrapper.launch_count
+    rb, ind = _core_qrcp(b)
+    torch.cuda.synchronize()
+    assert wrapper.launch_count == before + 1
+    kf = _truncation_rank(torch.diagonal(rb), 1e-8, None, captured)
+    _, _, piv = scipy.linalg.qr(b.cpu().numpy(), mode="economic",
+                                pivoting=True)
+    np.testing.assert_array_equal(ind.cpu().numpy()[:kf], piv[:kf])
+    _, r0, piv0 = k1.qrcp_core_plain(b)
+    ind0 = _full_permutation(piv0, b.shape[1])
+    assert torch.equal(ind[:kf], ind0[:kf])
+    r0 = torch.triu(r0[:, ind0])
+    assert float((rb - r0)[:kf, :kf].abs().max()) <= 1e-12 * float(
+        r0.abs().max())
+
+
+@pytest.mark.parametrize("dtype_name", ["float64", "complex128"])
+def test_wide_routes_launch_k3_k4(k1, dtype_name):
+    """``pivoted_qr`` on an f64 / c128 card tensor: ``gs`` (auto at n <=
+    512) launches K3 / K4 once, with the plain loop's pivots, also over
+    the JAX package's 12 MiB working set and on a stack of four
+    dimensions; the blocked route's pivot rule launches it once a panel on
+    the sketch."""
+    import torch
+
+    import rusty_compression_tpu_torch as rt
+    from rusty_compression_tpu_torch.ops.pivoted_qr import (
+        _qrcp_blocked_from_gaussian)
+
+    wrapper = (k1.qrcp_panel_c128 if dtype_name == "complex128"
+               else k1.qrcp_panel_f64)
+    a = _wide_panel((300, 200), dtype_name, seed=5)
+    before = wrapper.launch_count
+    q, r, ind = rt.pivoted_qr(a, 40)
+    torch.cuda.synchronize()
+    assert wrapper.launch_count == before + 1
+    _, _, piv0 = k1.qrcp_panel_plain(a, 40)
+    assert torch.equal(ind[:40], piv0)
+    assert float(((q @ r)[:, :40] - a[:, ind[:40]]).abs().max()) <= 1e-12
+    for shape, k in (((4096, 300), 64), ((2, 2, 120, 90), 20)):
+        x = _wide_panel(shape, dtype_name, seed=8)
+        before = wrapper.launch_count
+        _, _, ind = rt.pivoted_qr(x, k, mode="gs")
+        torch.cuda.synchronize()
+        layout = k1.panel_layout(*shape[-2:], k, x.element_size(), True)
+        panels = int(np.prod(shape[:-2]))
+        assert wrapper.launch_count == before + (
+            panels if layout.grid else 1)
+        _, _, piv0 = k1.qrcp_panel_plain(x, k)
+        assert torch.equal(ind[..., :k], piv0)
+    b = _wide_panel((200, 1000), dtype_name, seed=6)
+    sketch = _wide_panel((72, 200), dtype_name, seed=7)
+    before = wrapper.launch_count
+    _, _, piv_k = _qrcp_blocked_from_gaussian(b, sketch, 64, 64,
+                                              candidate_factor=0)
+    torch.cuda.synchronize()
+    assert wrapper.launch_count == before + 1
+    _, _, piv_p = _qrcp_blocked_from_gaussian(b, sketch, 64, 64,
+                                              pivot_kernel="plain",
+                                              candidate_factor=0)
+    assert torch.equal(piv_k, piv_p)
