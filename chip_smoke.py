@@ -388,6 +388,7 @@ KERNEL_CASES = {
         ((16384, 58), 50, False, "downdate")],
     "qrcp_panel_c128": [
         ((96, 2048), 96, False, "recompute"),     # a c128 core (grid)
+        ((64, 2048), 64, False, "recompute"),     # config 6c's core (grid)
         ((70, 2048), 70, True, "recompute"),
         ((96, 2048), 96, False, "downdate"),
         ((37, 301), 29, True, "downdate"),
@@ -448,8 +449,8 @@ class KernelChecks:
                  **panel_bound(shape, k, a.dtype, masked)}
         say("2-kernel", kernel=name, shape=list(shape), k=k,
             used_mask=masked, **rule, cluster=layout.cluster,
-            grid=layout.grid, resid_in_smem=layout.resid_in_smem,
-            vectors_in_smem=layout.vectors_in_smem,
+            layout=layout.code, resid_in_smem=layout.resid_in_smem,
+            q_share=layout.q_share,
             smem_bytes=layout.smem_bytes, threads=layout.threads,
             pivots_equal=True, repeat_bitwise=True, max_abs_err=err, **times)
         self.worst[name] = max(self.worst[name], err)

@@ -18,8 +18,10 @@
 // What the design does about it: K3's (qrcp_f64.cu), at 16 bytes an
 // element, read as it lies in memory (interleaved re, im doubles:
 // double2): a cluster with Q in every CTA's shared memory where it fits,
-// else one cooperative grid with the residual spread over its CTAs' shared
-// memory and Q (and, where m is very large, the CTA's vectors) in global
+// else one cooperative grid with the residual and Q split over its CTAs'
+// shared memory and the reorthogonalization split over the grid (config
+// 6c's (64, 2048) core: 64 CTAs of one column of Q each), and from 2048
+// rows on Q (and, where m is very large, the CTA's vectors) in global
 // memory.
 
 #include "qrcp_common.cuh"
@@ -32,11 +34,12 @@ int rc_qrcp_panel_c128(const void* a, const float* used, void* q, void* r,
                        int* piv, void* resid, double* norms, void* qws,
                        void* cand, void* best, void* vecs, int batch, int m,
                        int n, int k, int group, int threads, int resid_in_smem,
-                       int grid, int norm_rule, int smem_bytes, void* stream) {
+                       int layout, int norm_rule, int smem_bytes,
+                       void* stream) {
   return rc_qrcp::launch_wide<double2>(
       (const double2*)a, used, (double2*)q, (double2*)r, piv,
       (double2*)resid, norms, (double2*)qws, (double2*)cand, best,
-      (double2*)vecs, batch, m, n, k, group, threads, resid_in_smem, grid,
+      (double2*)vecs, batch, m, n, k, group, threads, resid_in_smem, layout,
       norm_rule, smem_bytes, stream);
 }
 

@@ -29,21 +29,45 @@ constexpr int kDowndate = 0;    // norms - |s|^2, carried over every step
 constexpr int kRecompute = 1;   // |x|^2 summed in this step's pass, - |s|^2
 
 // Where a group's CTAs keep what they share, and how a CTA reorthogonalizes
-// (the kernel's kLayout).
+// (the kernel's kLayout, which the wrapper's rule picks: PanelLayout.code).
 constexpr int kCluster = 0;     // a cluster: Q and the vectors in shared memory
-constexpr int kGridSmem = 1;    // a cooperative grid: Q in global memory
-constexpr int kGridTall = 2;    // the grid at kRowSplitRows rows or more
+constexpr int kGridSmem = 1;    // a cooperative grid: Q split over the CTAs
+constexpr int kGridTall = 2;    // the grid, Q in global memory, rows split
 constexpr int kGridGlobal = 3;  // the same, the CTAs' vectors in global too
+constexpr int kGridWarps = 4;   // the grid, Q in global memory, warps over Q
 
-// From this many rows on, the grid's reorthogonalization and norm spread
-// each column's rows over the whole block (one block reduction per four
-// columns of Q; layouts kGridTall, kGridGlobal) instead of giving a warp
-// four whole columns: a warp that walks thousands of rows alone waits on
-// its L2 loads one after another (sweep.py --clocks: Q^H v took 160 k
-// cycles a step at (4096, 512) k = 64 and 407 k at (16384, 58) k = 50
-// with a warp a column group). A compile-time choice: as a runtime branch
-// it cost the shorter grids 40 % (the (256, 8192) core 7.96 -> 11.17 ms).
-constexpr int kRowSplitRows = 2048;
+// kGridSmem: CTA r of G keeps the columns t = r (mod G) of Q in its shared
+// memory, and a step reorthogonalizes the pivot column v over the grid:
+// each CTA projects v on its own columns and writes its part of -Q Q^H v
+// (an m-vector) to global memory; behind a barrier CTA r sums rows
+// [r m/G, (r+1) m/G) of the G parts, in order, into v' = v - Q Q^H v;
+// behind a second barrier every CTA reads v' and normalises it itself.
+// So a step has three grid barriers (the candidates', the parts', v''s:
+// each stage needs what every CTA wrote in the one before) and the grid
+// reads about 3 G m words from L2, where a CTA that kept nothing of Q read
+// all of it (2 m i words, every CTA, every step). What bounds a step now
+// is its chain of latencies: the barriers (about 2 k cycles each), four
+// L2 round trips and the column pass (qrcp_f64.cu has the cycles).
+//
+// kGridTall, kGridGlobal: from 2048 rows on (the wrapper's ROW_SPLIT_ROWS)
+// Q lies in global memory (written by CTA 0, read by all) and each CTA reorthogonalizes v itself, its whole
+// block taking four columns at a time, each thread a stride of rows (one
+// block reduction per four columns of Q): a warp that walks thousands of
+// rows alone waits on its L2 loads one after another (sweep.py --clocks:
+// Q^H v took 160 k cycles a step at (4096, 512) k = 64 and 407 k at
+// (16384, 58) k = 50 with a warp a column group). The layouts are
+// template parameters: as a runtime branch the row split cost the shorter
+// grids 40 %.
+//
+// kGridWarps: below 2048 rows, where no grid holds the shares of Q even
+// with the residual in global memory (m and k both large), Q lies in
+// global memory and each CTA reorthogonalizes v itself, a warp taking four
+// columns of Q at a time as in a cluster. Below 2048 rows kGridTall's
+// block over the rows, a block barrier every four columns, ran 2.6-2.9
+// times slower (sweep.py: c128 (1000, 1000) k = 600, f64 (1500, 1500)
+// k = 1500). Every CTA still reads all of Q from L2 each step: c128
+// (1900, 2000) k = 400 takes 103 ms, where the split grid with the
+// residual in L2 takes 15 ms at (1000, 1000) k = 600.
 
 // Launcher results that are not CUDA errors.
 constexpr int kErrBadLayout = -2;        // layout numbers out of range
@@ -224,25 +248,36 @@ __host__ __device__ inline size_t vec_stride(int m, int k) {
   return ((size_t)3 * m + k + 1) & ~(size_t)1;
 }
 
+// Columns of Q each CTA of a kGridSmem grid of `group` keeps.
+__host__ __device__ inline int q_share(int k, int group) {
+  return (k + group - 1) / group;
+}
+
 // Dynamic shared memory of one CTA. In a cluster: the (q_{i-1}, q_i) pairs
 // (m), Q (m, k), the cluster's candidate columns (buffers x cluster x m),
-// the projections (k) and one partial sum per thread. In the grid layout
-// (K3, K4) Q and the candidates lie in global memory, and the CTA keeps
-// the pivot column (m) in their place; where m is too large for the pairs,
-// the pivot column and the projections to fit (vec_in_smem 0), they lie in
-// the CTA's part of a global workspace too. With f64 norms, one partial
-// norm per thread. In the shared-memory layout of the residual, the slice
-// (m, w), its last R row (w) and its norms (w). The wrapper's layout rule
-// computes the same number.
-__host__ __device__ inline size_t smem_need(int m, int k, int w, int cluster,
+// the projections (k) and one partial sum per thread. In the grid (K3, K4)
+// the candidates lie in global memory, and the CTA keeps the pairs, the
+// pivot column (m) and the projections: with Q split (kGridSmem) its share
+// of Q (q_share columns) and as many projections; with Q in global memory
+// k projections (kGridTall, kGridWarps), or none of these vectors where m is too large
+// for them (kGridGlobal: they lie in the CTA's part of a global workspace).
+// With f64 norms, one partial norm per thread. In the shared-memory layout
+// of the residual, the slice (m, w), its last R row (w) and its norms (w).
+// The wrapper's layout rule computes the same number.
+__host__ __device__ inline size_t smem_need(int m, int k, int w, int group,
                                             int threads, int resid_in_smem,
-                                            int grid, int vec_in_smem,
-                                            size_t itemsize,
+                                            int layout, size_t itemsize,
                                             size_t normsize) {
-  const size_t vectors =
-      grid ? (vec_in_smem ? (size_t)3 * m + k : 0)
-           : (size_t)m * k + (size_t)cand_buffers(cluster) * cluster * m +
-                 2 * (size_t)m + k;
+  size_t vectors = 0;
+  if (layout == kCluster) {
+    vectors = (size_t)m * k + (size_t)cand_buffers(group) * group * m +
+              2 * (size_t)m + k;
+  } else if (layout == kGridSmem) {
+    const size_t share = (size_t)q_share(k, group);
+    vectors = (size_t)3 * m + share + share * m;
+  } else if (layout == kGridTall || layout == kGridWarps) {
+    vectors = (size_t)3 * m + k;
+  }
   size_t bytes = itemsize * (vectors + threads);
   if (normsize == 8) bytes += normsize * threads;
   if (resid_in_smem) {
@@ -355,17 +390,20 @@ __device__ __forceinline__ ArgMax<Norm<T>> column_pass(
 //
 // The group is a thread-block cluster (kLayout kCluster: K1, K2, and K3/K4
 // where Q fits in shared memory) or the whole cooperative grid of one
-// launch (kGridSmem, kGridTall, kGridGlobal: K3/K4 where it does not). In
-// a cluster every CTA holds Q and the candidate columns come through
-// distributed shared memory; in the grid Q lies once in global memory
-// (q_ws, written by rank 0, read from L2 by all) and the candidates come
-// through global memory (cand_ws, best_ws), behind a grid barrier. The
-// grid's CTAs keep their vectors (pairs, pivot column, projections) in
-// shared memory (kGridSmem, kGridTall), or, where m is too large for that
-// (kGridGlobal), each in its own part of vec_ws: written and read back by
-// the CTA's own threads across a __syncthreads, which makes the writes
-// visible to them. The layout is a template parameter, so that the
-// shared-memory layouts keep their shared-memory loads.
+// launch (kGridSmem, kGridTall, kGridGlobal, kGridWarps: K3/K4 where it
+// does not). In a cluster every CTA holds Q and the candidate columns come
+// through distributed shared memory. In the grid the candidates come through
+// global memory (cand_ws, best_ws) behind a grid barrier, and Q is split
+// over the CTAs' shared memory (kGridSmem: q_ws then holds the CTAs' parts
+// of -Q Q^H v and v', (group + 1) m elements) or lies once in global
+// memory (kGridTall, kGridGlobal, kGridWarps: q_ws, written by rank 0,
+// read from L2 by all). The grid's CTAs keep their vectors (pairs, pivot
+// column, projections) in shared memory (kGridSmem, kGridTall,
+// kGridWarps), or, where m is too large for that (kGridGlobal), each in its
+// own part of vec_ws: written and read back by the CTA's own threads
+// across a __syncthreads, which makes the writes visible to them. The
+// layout is a template parameter, so that the shared-memory layouts keep
+// their shared-memory loads.
 template <typename T, int kRule, int kLayout>
 __global__ void __launch_bounds__(kMaxThreads)
 qrcp_panel_kernel(const T* __restrict__ a, const float* __restrict__ used,
@@ -375,11 +413,17 @@ qrcp_panel_kernel(const T* __restrict__ a, const float* __restrict__ used,
                   int w, int resid_in_smem, int group) {
   using N = Norm<T>;
   constexpr bool kGrid = kLayout != kCluster;
+  constexpr bool kSplitQ = kLayout == kGridSmem;
   constexpr bool kVecGlobal = kLayout == kGridGlobal;
   constexpr bool kRowsSplit = kLayout == kGridTall || kVecGlobal;
+  // Clock slots of the norm and q_i, and of the column pass: kGridSmem
+  // times its barriers and the stages of its reorthogonalization in 1-5.
+  constexpr int kNormSlot = kSplitQ ? 6 : 4;
+  constexpr int kPassSlot = kSplitQ ? 7 : 5;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ ArgMax<N> warp_best[kMaxWarps];
   __shared__ ArgMax<N> cand_best[2 * kMaxCluster];
+  __shared__ int pivot_s;   // the grid's pivot, joined by warp 0
 
   cg::cluster_group cluster = cg::this_cluster();
   const int nranks = kGrid ? group : (int)cluster.num_blocks();
@@ -416,15 +460,25 @@ qrcp_panel_kernel(const T* __restrict__ a, const float* __restrict__ used,
                        vec_ws + (size_t)blockIdx.x * vec_stride(m, k))
                  : smem_raw;
   Pair<T>* pq = reinterpret_cast<Pair<T>*>(vec_base);  // (m)
+  // Columns of Q this CTA keeps: its share in kGridSmem (share column u is
+  // column rank + u * nranks of Q), all k in a cluster.
+  const int share = kSplitQ ? q_share(k, nranks) : k;
   // Q, column t at qs + t * m: in shared memory after the pairs, or in
-  // global memory (the grid layout).
-  T* qs = kGrid ? q_ws + panel * (size_t)k * m : reinterpret_cast<T*>(pq + m);
+  // global memory (kGridTall, kGridGlobal, kGridWarps).
+  T* qs = (kGrid && !kSplitQ) ? q_ws + panel * (size_t)k * m
+                              : reinterpret_cast<T*>(pq + m);
   // (buffers, nranks, m) in a cluster; the pivot column (m) in the grid
-  T* cand = kGrid ? reinterpret_cast<T*>(pq + m) : qs + (size_t)m * k;
+  T* cand = !kGrid ? qs + (size_t)m * k
+                   : (kSplitQ ? qs + (size_t)share * m
+                              : reinterpret_cast<T*>(pq + m));
+  // the projections (share)
   T* qv = cand + (kGrid ? (size_t)m
-                        : (size_t)cand_buffers(nranks) * nranks * m);  // (k)
+                        : (size_t)cand_buffers(nranks) * nranks * m);
   // (nthreads) partial sums, first in shared memory when the vectors are not
-  T* part = kVecGlobal ? reinterpret_cast<T*>(smem_raw) : qv + k;
+  T* part = kVecGlobal ? reinterpret_cast<T*>(smem_raw) : qv + share;
+  // kGridSmem: the CTAs' parts of -Q Q^H v (nranks, m), then v' (m)
+  T* parts = q_ws + panel * (size_t)(nranks + 1) * m;
+  T* vnew = parts + (size_t)nranks * m;
   N* partn = reinterpret_cast<N*>(part + nthreads);  // (nthreads), f64 norms
   T* resid_s = sizeof(N) == 8 ? reinterpret_cast<T*>(partn + nthreads)
                               : part + nthreads;  // slice (m, w)
@@ -476,10 +530,11 @@ qrcp_panel_kernel(const T* __restrict__ a, const float* __restrict__ used,
     // read it: into every CTA's candidate buffer (distributed shared
     // memory) in a cluster, into its slot of the global candidates in the
     // grid. After the barrier every warp of every CTA joins the
-    // candidates itself, so all agree on j with ties to the lowest index,
-    // and all hold the pivot column: no second exchange, and the owner
-    // may go on downdating. The buffers alternate by step, because a CTA
-    // may write the next candidates while a slower peer still reads these.
+    // candidates itself (in the grid one warp a CTA, for the CTA), so all
+    // agree on j with ties to the lowest index, and all hold the pivot
+    // column: no second exchange, and the owner may go on downdating. The
+    // buffers alternate by step, because a CTA may write the next
+    // candidates while a slower peer still reads these.
     best = warp_argmax(best);
     if (lane == 0) warp_best[warp] = best;
     __syncthreads();
@@ -507,13 +562,23 @@ qrcp_panel_kernel(const T* __restrict__ a, const float* __restrict__ used,
         cand_i[(size_t)rank * m + r] = val;
       }
       if (tid == 0) best_i[rank] = best;
+      if constexpr (kSplitQ) { RC_CLOCK_MARK(0); }   // with the candidates out
       cg::this_grid().sync();
-      ArgMax<N> join{-INFINITY, n};
-      for (int x = lane; x < nranks; x += 32) {
-        join = better(join, ArgMax<N>{__ldcg(&best_i[x].v),
-                                      __ldcg(&best_i[x].i)});
+      if constexpr (kSplitQ) { RC_CLOCK_MARK(1); }   // the candidates' barrier
+      // One warp a CTA joins the bests: every warp of every CTA reading
+      // the same few lines of L2 cost 17.8 k cycles a step at 85 CTAs.
+      if (warp == 0) {
+        ArgMax<N> join{-INFINITY, n};
+#pragma unroll 4
+        for (int x = lane; x < nranks; x += 32) {
+          join = better(join, ArgMax<N>{__ldcg(&best_i[x].v),
+                                        __ldcg(&best_i[x].i)});
+        }
+        join = warp_argmax(join);
+        if (lane == 0) pivot_s = join.i;
       }
-      j = warp_argmax(join).i;
+      __syncthreads();
+      j = pivot_s;
       v = cand;
       for (int r = tid; r < m; r += nthreads) {
         v[r] = __ldcg(cand_i + (size_t)(j / w) * m + r);
@@ -542,18 +607,76 @@ qrcp_panel_kernel(const T* __restrict__ a, const float* __restrict__ used,
       j = best.i;
       v = cand_i + (size_t)(j / w) * m;   // in place
     }
-    RC_CLOCK_MARK(1);   // candidates out, group barrier, joined
+    RC_CLOCK_MARK(kSplitQ ? 2 : 1);   // candidates out, barrier, joined
 
-    // 3. Reorthogonalize against the i columns built so far, replicated
-    // in every CTA: v -= Q (Q^H v). Q is column-major, so a warp reads
-    // neighbouring words in both loops. A warp takes four columns of Q at
-    // a time and a thread four partial sums, to have independent chains;
-    // in the grid from kRowSplitRows rows on, the whole block takes four
-    // columns at a time, each thread a stride of rows, and joins the sums
-    // through `part` (two buffers by group parity, one barrier a group).
-    // Either way the order of every sum is fixed, so every CTA of the grid
-    // computes the same q_i bit for bit.
-    if (i > 0) {
+    // 3. Reorthogonalize v against the i columns of Q: v -= Q (Q^H v).
+    // kGridSmem splits it over the grid, Q staying where it lies:
+    // (a) each CTA projects v on its own columns of Q, a warp a column;
+    // (b) it writes its part of -Q Q^H v to global memory (a CTA that owns
+    //     no column below i writes nothing, and nobody reads its part);
+    // (c) behind a barrier, CTA rank sums rows [rank rows, (rank + 1) rows)
+    //     of the parts, a warp a row, its lanes over the parts in rank
+    //     order, and writes those rows of v' = v + the sum;
+    // (d) behind a second barrier every CTA reads all of v'.
+    // Each element of v' is summed once, by one CTA, so every CTA holds it
+    // bit for bit, and q_i with it (the norm below is taken by every warp
+    // in the same order).
+    if constexpr (kSplitQ) {
+      if (i > 0) {
+        const int own = i > rank ? (i - 1 - rank) / nranks + 1 : 0;
+        for (int u = warp; u < own; u += nwarps) {
+          const T* qu = qs + (size_t)u * m;
+          T s0{}, s1{};
+          int r = lane;
+          for (; r + 32 < m; r += 64) {
+            s0 = conj_mul_add(s0, qu[r], v[r]);
+            s1 = conj_mul_add(s1, qu[r + 32], v[r + 32]);
+          }
+          if (r < m) s0 = conj_mul_add(s0, qu[r], v[r]);
+          s0 = warp_sum(add(s0, s1));
+          if (lane == 0) qv[u] = s0;
+        }
+        __syncthreads();
+        if (own > 0) {
+          for (int r = tid; r < m; r += nthreads) {
+            T x{};
+            for (int u = 0; u < own; ++u) {
+              x = mul_sub(x, qs[(size_t)u * m + r], qv[u]);
+            }
+            parts[(size_t)rank * m + r] = x;
+          }
+        }
+        RC_CLOCK_MARK(2);   // the own projections and part
+        cg::this_grid().sync();
+        RC_CLOCK_MARK(3);   // the parts' barrier
+        const int owners = min(i, nranks);
+        const int rows = (m + nranks - 1) / nranks;
+        const int ra = min(m, rank * rows);
+        const int rb = min(m, ra + rows);
+        for (int r = ra + warp; r < rb; r += nwarps) {
+          T x{};
+#pragma unroll 4
+          for (int p = lane; p < owners; p += 32) {
+            x = add(x, __ldcg(parts + (size_t)p * m + r));
+          }
+          x = warp_sum(x);
+          if (lane == 0) vnew[r] = add(v[r], x);
+        }
+        RC_CLOCK_MARK(4);   // the CTA's rows of v'
+        cg::this_grid().sync();
+        RC_CLOCK_MARK(5);   // v''s barrier
+        for (int r = tid; r < m; r += nthreads) v[r] = __ldcg(vnew + r);
+        __syncthreads();
+      }
+    } else if (i > 0) {
+      // Replicated in every CTA. Q is column-major, so a warp reads
+      // neighbouring words in both loops. A warp takes four columns of Q
+      // at a time and a thread four partial sums, to have independent
+      // chains; in kGridTall and kGridGlobal the whole block takes four
+      // columns at a time, each thread a stride of rows, and joins the
+      // sums through `part` (two buffers by group parity, one barrier a
+      // group). Either way the order of every sum is fixed, so every CTA
+      // of the grid computes the same q_i bit for bit.
       if constexpr (kRowsSplit) {
         for (int t0 = 0, g = 0; t0 < i; t0 += 4, ++g) {
           const T* q0 = qs + (size_t)t0 * m;
@@ -639,8 +762,9 @@ qrcp_panel_kernel(const T* __restrict__ a, const float* __restrict__ used,
     // with kRowsSplit the block joins the threads' sums through `partn`,
     // and every thread adds the warps' in the same order); a zero column
     // gives a zero q_i. q_i becomes column i of Q and the newer half of
-    // the pairs. In the grid, rank 0 alone writes Q, and q_out as it goes;
-    // the next step's barrier publishes both.
+    // the pairs. In the grid one CTA writes column i of Q, and of q_out as
+    // it goes: its owner in kGridSmem, into its share; rank 0 elsewhere,
+    // into q_ws, which the next step's barrier publishes.
     N nv = 0;
     if constexpr (kRowsSplit) {
       for (int r = tid; r < m; r += nthreads) nv += abs2(v[r]);
@@ -655,15 +779,20 @@ qrcp_panel_kernel(const T* __restrict__ a, const float* __restrict__ used,
       nv = root(warp_sum(nv));
     }
     const N inv = nv > N(0) ? N(1) / nv : N(0);
+    const bool owner = kSplitQ ? rank == i % nranks : rank == 0;
     for (int r = tid; r < m; r += nthreads) {
       const T x = scale(v[r], inv);
-      if (!kGrid || rank == 0) qs[(size_t)i * m + r] = x;
-      if (kGrid && rank == 0) q_out[(size_t)r * k + i] = x;
+      if constexpr (kSplitQ) {
+        if (owner) qs[(size_t)(i / nranks) * m + r] = x;
+      } else if (!kGrid || owner) {
+        qs[(size_t)i * m + r] = x;
+      }
+      if (kGrid && owner) q_out[(size_t)r * k + i] = x;
       pq[r] = Pair<T>{i > 0 ? pq[r].cur : T{}, x};
     }
     if (rank == 0 && tid == 0) piv_out[i] = j;
     __syncthreads();
-    RC_CLOCK_MARK(4);   // norm and q_i
+    RC_CLOCK_MARK(kNormSlot);   // (v' in,) norm and q_i
 
     // 5-7. The column pass, compiled once for each address space.
     T* r_row = r_out + (size_t)i * n + g.c0;
@@ -675,7 +804,7 @@ qrcp_panel_kernel(const T* __restrict__ a, const float* __restrict__ used,
                                    r_out + (size_t)max(i - 1, 0) * n + g.c0,
                                    r_row, r_row, pq, part, partn, g, i, j, n);
     }
-    RC_CLOCK_MARK(5);   // column pass
+    RC_CLOCK_MARK(kPassSlot);   // column pass
   }
 
   if constexpr (!kGrid) {
@@ -733,10 +862,10 @@ int schedulable(Kernel kernel, int group, int threads, int smem_bytes,
 }
 
 // Launches `batch` groups of `group` CTAs with `threads` threads and
-// `smem_bytes` of dynamic shared memory each: clusters (grid false) or one
-// cooperative grid (grid true; the global workspaces q_ws, cand_ws and
-// best_ws are then needed, and vec_ws, (group, vec_stride) elements, where
-// the vectors do not lie in shared memory; it is null where they do).
+// `smem_bytes` of dynamic shared memory each: clusters (kCluster) or one
+// cooperative grid of one panel (the global workspaces q_ws, cand_ws and
+// best_ws are then needed, and vec_ws, (group, vec_stride) elements, in
+// kGridGlobal alone; it is null elsewhere).
 // Returns 0, a CUDA error, or one of the kErr codes; does not synchronise.
 template <typename T, int kRule, int kLayout>
 int launch(const T* a, const float* used, T* q, T* r, int* piv, T* resid_ws,
@@ -753,14 +882,13 @@ int launch(const T* a, const float* used, T* q, T* r, int* piv, T* resid_ws,
     return kErrBadLayout;
   }
   const int w = (n + group - 1) / group;
-  if (smem_need(m, k, w, group, threads, resid_in_smem, kGrid,
-                kLayout != kGridGlobal, sizeof(T),
+  if (smem_need(m, k, w, group, threads, resid_in_smem, kLayout, sizeof(T),
                 sizeof(Norm<T>)) > (size_t)smem_bytes ||
       ((kLayout == kGridGlobal) != (vec_ws != nullptr)) ||
       (vec_ws != nullptr && batch != 1) ||
       (!resid_in_smem && (resid_ws == nullptr || norms_ws == nullptr)) ||
       (kGrid && (q_ws == nullptr || cand_ws == nullptr ||
-                 best_ws == nullptr))) {
+                 best_ws == nullptr || batch != 1))) {
     return kErrBadLayout;
   }
   auto kernel = qrcp_panel_kernel<T, kRule, kLayout>;
@@ -814,37 +942,47 @@ int launch_panel(const T* a, const float* used, T* q, T* r, int* piv,
                                         stream);
 }
 
-// K3 and K4 under one norm rule: a cluster, or the grid with the vectors
-// in shared memory (vec_ws null; the rows split from kRowSplitRows on) or
-// in vec_ws.
+// K3 and K4 under one norm rule, in the layout `layout` (kCluster,
+// kGridSmem, kGridTall, kGridGlobal or kGridWarps).
 template <typename T, int kRule>
 int launch_rule(const T* a, const float* used, T* q, T* r, int* piv,
                 T* resid_ws, double* norms_ws, T* q_ws, T* cand_ws,
                 ArgMax<double>* best, T* vec_ws, int batch, int m, int n,
-                int k, int group, int threads, int resid_in_smem, int grid,
+                int k, int group, int threads, int resid_in_smem, int layout,
                 int smem_bytes, void* stream) {
-  if (!grid) {
-    return launch<T, kRule, kCluster>(a, used, q, r, piv, resid_ws, norms_ws,
-                                      q_ws, cand_ws, best, vec_ws, batch, m,
-                                      n, k, group, threads, resid_in_smem,
-                                      smem_bytes, stream);
+  switch (layout) {
+    case kCluster:
+      return launch<T, kRule, kCluster>(a, used, q, r, piv, resid_ws,
+                                        norms_ws, q_ws, cand_ws, best,
+                                        vec_ws, batch, m, n, k, group,
+                                        threads, resid_in_smem, smem_bytes,
+                                        stream);
+    case kGridSmem:
+      return launch<T, kRule, kGridSmem>(a, used, q, r, piv, resid_ws,
+                                         norms_ws, q_ws, cand_ws, best,
+                                         vec_ws, batch, m, n, k, group,
+                                         threads, resid_in_smem, smem_bytes,
+                                         stream);
+    case kGridTall:
+      return launch<T, kRule, kGridTall>(a, used, q, r, piv, resid_ws,
+                                         norms_ws, q_ws, cand_ws, best,
+                                         vec_ws, batch, m, n, k, group,
+                                         threads, resid_in_smem, smem_bytes,
+                                         stream);
+    case kGridGlobal:
+      return launch<T, kRule, kGridGlobal>(a, used, q, r, piv, resid_ws,
+                                           norms_ws, q_ws, cand_ws, best,
+                                           vec_ws, batch, m, n, k, group,
+                                           threads, resid_in_smem,
+                                           smem_bytes, stream);
+    case kGridWarps:
+      return launch<T, kRule, kGridWarps>(a, used, q, r, piv, resid_ws,
+                                          norms_ws, q_ws, cand_ws, best,
+                                          vec_ws, batch, m, n, k, group,
+                                          threads, resid_in_smem, smem_bytes,
+                                          stream);
   }
-  if (vec_ws == nullptr && m < kRowSplitRows) {
-    return launch<T, kRule, kGridSmem>(a, used, q, r, piv, resid_ws,
-                                       norms_ws, q_ws, cand_ws, best, vec_ws,
-                                       batch, m, n, k, group, threads,
-                                       resid_in_smem, smem_bytes, stream);
-  }
-  if (vec_ws == nullptr) {
-    return launch<T, kRule, kGridTall>(a, used, q, r, piv, resid_ws,
-                                       norms_ws, q_ws, cand_ws, best, vec_ws,
-                                       batch, m, n, k, group, threads,
-                                       resid_in_smem, smem_bytes, stream);
-  }
-  return launch<T, kRule, kGridGlobal>(a, used, q, r, piv, resid_ws,
-                                       norms_ws, q_ws, cand_ws, best, vec_ws,
-                                       batch, m, n, k, group, threads,
-                                       resid_in_smem, smem_bytes, stream);
+  return kErrBadLayout;
 }
 
 // K3 and K4: the norm rule and the layout, as the wrapper asks.
@@ -852,20 +990,20 @@ template <typename T>
 int launch_wide(const T* a, const float* used, T* q, T* r, int* piv,
                 T* resid_ws, double* norms_ws, T* q_ws, T* cand_ws,
                 void* best_ws, T* vec_ws, int batch, int m, int n, int k,
-                int group, int threads, int resid_in_smem, int grid,
+                int group, int threads, int resid_in_smem, int layout,
                 int norm_rule, int smem_bytes, void* stream) {
   auto* best = static_cast<ArgMax<double>*>(best_ws);
   if (norm_rule == kDowndate) {
     return launch_rule<T, kDowndate>(a, used, q, r, piv, resid_ws, norms_ws,
                                      q_ws, cand_ws, best, vec_ws, batch, m, n,
-                                     k, group, threads, resid_in_smem, grid,
+                                     k, group, threads, resid_in_smem, layout,
                                      smem_bytes, stream);
   }
   if (norm_rule == kRecompute) {
     return launch_rule<T, kRecompute>(a, used, q, r, piv, resid_ws, norms_ws,
                                       q_ws, cand_ws, best, vec_ws, batch, m,
                                       n, k, group, threads, resid_in_smem,
-                                      grid, smem_bytes, stream);
+                                      layout, smem_bytes, stream);
   }
   return kErrBadLayout;
 }

@@ -43,41 +43,64 @@
 // - the residual is spread over the grid, so that each slice lies in its
 //   CTA's shared memory (16 MiB over 128 CTAs is 128 KiB a CTA) and the
 //   column pass never leaves the SM;
-// - one grid barrier a step, in place of the cluster barrier: each CTA
-//   writes its best and its candidate column to global memory, and after
-//   the barrier every warp joins the bests and every CTA copies the
-//   winning column; buffers alternate by step parity, as in a cluster;
-// - Q lies once in global memory, written by CTA 0 and read by every CTA
-//   from L2 for its own copy of the reorthogonalization (the same code
-//   and order in every CTA, so q_i is bitwise the same everywhere and
-//   nothing is broadcast). Only one CTA reorthogonalizing would read Q
-//   once a step instead of once a CTA, but would cost a second grid
-//   barrier a step; reading 2 m i words from L2 per CTA is the simpler
-//   choice, and PERF.md keeps what it measures;
-// - from 2048 rows on (kRowSplitRows) a CTA spreads its
-//   reorthogonalization and norm over all its threads by rows, joined by
-//   block reductions, so that a step of a tall panel is not one warp's
-//   walk down thousands of rows of Q;
+// - Q is spread over the grid too: CTA r keeps the columns t = r (mod G)
+//   of Q in its shared memory (2 of the (256, 8192) core's 256 columns at
+//   G = 128, 4 KiB), so no CTA reads Q from L2;
+// - three grid barriers a step. (1) Each CTA writes its best and its
+//   candidate column to global memory; after the barrier one warp a CTA
+//   joins the bests (all warps of all CTAs reading the same lines of L2
+//   cost 17.8 k cycles a step at 85 CTAs) and every CTA copies the winning
+//   column v. (2) Each CTA projects v on its own columns of Q and writes
+//   its part of -Q Q^H v, an m-vector; after the barrier CTA r sums its
+//   share of the rows of the parts, in rank order, into v'. (3) After the
+//   barrier every CTA reads v', takes its norm in the same order as every
+//   other warp, and holds q_i bit for bit as the others do. The grid reads
+//   about 3 G m words from L2 a step, where a CTA that kept none of Q read
+//   2 m i (42 MB a step over 82 CTAs at i = 256);
+// - the rule picks the fewest CTAs whose slices are at most a warp wide
+//   and whose shares of Q at most 16 columns, else the most (128): the
+//   column pass shrinks with the slice until a warp spans it;
+// - a step of the (256, 8192) core now costs ~23 k cycles (sweep.py
+//   --clocks, one H100): the column pass 5.4 k, the three barriers 1.9-
+//   2.4 k each (cooperative groups' grid.sync(), about 1 us; a hand-written
+//   release/acquire counter saved 2-5 % of the kernel and was not kept),
+//   then four L2 round trips (the bests, v, the parts, v') and the CTA's
+//   argmax; the 65.7 k of the design that re-read Q in every CTA went to
+//   the reorthogonalization (33.5 k) and the barrier with its join (21.4 k);
+// - below 2048 rows, where no slice fits beside the shares, the residual
+//   lies in global memory and Q stays split over 128 CTAs (c128 (1000,
+//   1000) k = 600: 15 ms, against 111 ms with Q in L2, a warp four columns
+//   at a time); where no share fits either, Q lies once in global memory
+//   in just that way (kGridWarps: written by CTA 0, and each CTA
+//   reorthogonalizes v itself from L2); one grid barrier a step;
+// - from 2048 rows on, Q lies once in global memory and each CTA
+//   reorthogonalizes v from L2 with its block spread over the rows and
+//   joined by block reductions, so that a step of a tall panel is not one
+//   warp's walk down thousands of rows of Q (below 2048 rows this ran
+//   2.6-2.9 times slower than kGridWarps); one grid barrier a step;
 // - where m is so large that a CTA's vectors (the pairs, the pivot column
 //   and the projections, 3 m + k elements) do not fit in its shared
 //   memory beside the partial sums, they lie in its own part of a global
 //   workspace, so that every panel has a layout.
-// There are no atomics besides the grid barrier's own: a run repeats
-// bitwise.
+// There are no atomics besides the grid barrier's own, and every sum has a
+// fixed order: a run repeats bitwise.
 
 #include "qrcp_common.cuh"
 
 extern "C" {
 
 // Launches one group of `group` CTAs per panel of the (batch, m, n) stack
-// `a` on `stream`: a cluster (grid 0) or a cooperative grid (grid 1).
+// `a` on `stream`, in the layout `layout`: 0 a cluster, 1 a cooperative
+// grid with Q split over its CTAs, 2 the grid with Q in global memory, 3
+// the same with the CTAs' vectors there too, 4 the grid with Q in global
+// memory read a warp four columns at a time (PanelLayout.code).
 // `used` is null or (batch, n) f32 with > 0 marking excluded columns.
 // `resid` (batch, m, n) and `norms` (batch, n) f64 are scratch for the
 // global-memory residual and may be null when `resid_in_smem` is set; the
-// grid needs `qws` (batch, k, m), `cand` (batch, 2, group, m) and `best`
-// (batch, 2, group) of 16 bytes, and, for one panel whose vectors do not
-// fit in shared memory, `vecs` (group, vec_stride(m, k)); `vecs` is null
-// otherwise. `norm_rule` is 0 (downdate) or 1
+// grid needs `qws` ((group + 1, m) in layout 1, (batch, k, m) in 2 and 3),
+// `cand` (batch, 2, group, m) and `best` (batch, 2, group) of 16 bytes,
+// and, in layout 3, `vecs` (group, vec_stride(m, k)); `vecs` is null
+// otherwise. A grid runs one panel (batch 1). `norm_rule` is 0 (downdate) or 1
 // (recompute). Returns 0, the CUDA error of the launch, -1 when the card
 // cannot place the group, or -2 for layout numbers that do not fit
 // together; does not synchronise.
@@ -85,12 +108,12 @@ int rc_qrcp_panel_f64(const double* a, const float* used, double* q,
                       double* r, int* piv, double* resid, double* norms,
                       double* qws, double* cand, void* best, double* vecs,
                       int batch, int m, int n, int k, int group, int threads,
-                      int resid_in_smem, int grid, int norm_rule,
+                      int resid_in_smem, int layout, int norm_rule,
                       int smem_bytes, void* stream) {
   return rc_qrcp::launch_wide<double>(a, used, q, r, piv, resid, norms, qws,
                                       cand, best, vecs, batch, m, n, k, group,
-                                      threads, resid_in_smem, grid, norm_rule,
-                                      smem_bytes, stream);
+                                      threads, resid_in_smem, layout,
+                                      norm_rule, smem_bytes, stream);
 }
 
 #ifdef RC_QRCP_CLOCKS

@@ -92,12 +92,18 @@ MAX_THREADS = 1024
 #: CTAs of K3's and K4's cooperative grid at most: one an SM, under the
 #: H100 SXM's 132.
 MAX_GRID = 128
+#: From this many rows on the grid keeps Q in global memory and spreads a
+#: step's reorthogonalization over a CTA's threads by rows (layouts 2, 3).
+ROW_SPLIT_ROWS = 2048
 #: The norm rules of K3 and K4, as the C entry points number them.
 NORM_RULES = {"downdate": 0, "recompute": 1}
 #: Residual elements a CTA may hold before the layout rule splits the
 #: panel over a larger cluster: below it a step's fixed cost (barriers,
 #: reorthogonalization) outweighs the column pass (``sweep.py``'s table).
 _SPLIT_ELEMENTS = 4608
+#: Columns of Q a CTA of the grid that splits Q may keep before the layout
+#: rule spreads Q over more CTAs (``sweep.py --grids``).
+_GRID_SHARE = 16
 
 @dataclasses.dataclass(frozen=True)
 class PanelLayout:
@@ -105,31 +111,48 @@ class PanelLayout:
     ``width`` neighbouring columns and running ``threads`` threads with
     ``smem_bytes`` of dynamic shared memory; the residual slice in the
     owner's shared memory (``resid_in_smem``) or in a global workspace.
-    ``grid`` (K3, K4): the CTAs are one cooperative grid, not a cluster,
-    and Q lies in global memory; so do a CTA's vectors where they do not
-    fit in its shared memory (``vectors_in_smem`` false)."""
+    ``code`` is the kernel's layout template, as the C entry points number
+    it: 0 a cluster; K3 and K4 also run one cooperative grid (``grid``),
+    1 with each CTA holding ``q_share`` columns of Q in its shared memory
+    (the columns t = rank mod ``cluster``), 2 with Q in global memory and
+    each CTA's block spread over the rows, 3 the same with a CTA's vectors
+    there too (``vectors_in_smem`` false), 4 with Q in global memory and
+    each warp taking four columns of Q at a time."""
     cluster: int
     width: int
     threads: int
     resid_in_smem: bool
     smem_bytes: int
-    grid: bool = False
-    vectors_in_smem: bool = True
+    code: int = 0
+    q_share: int = 0
+
+    @property
+    def grid(self) -> bool:
+        return self.code != 0
+
+    @property
+    def vectors_in_smem(self) -> bool:
+        return self.code != 3
 
 
 def _basis_bytes(m: int, k: int, cluster: int, threads: int,
-                 itemsize: int, wide: bool = False, grid: bool = False,
-                 vectors_in_smem: bool = True) -> int:
-    """Shared memory every CTA needs whatever the residual's place: Q
-    (m, k), the (q_{i-1}, q_i) pairs, the cluster's candidate pivot
-    columns (two buffers of ``cluster`` columns; one buffer for a CTA
-    alone), the projections and one partial sum per thread; for K3 and K4
-    (``wide``, f64 norms) one partial norm per thread too. In the grid Q
-    and the candidates lie in global memory and a CTA holds the pivot
-    column, and without ``vectors_in_smem`` its pairs, pivot column and
-    projections lie in global memory as well."""
-    if grid:
-        vectors = 3 * m + k if vectors_in_smem else 0
+                 itemsize: int, wide: bool = False, code: int = 0) -> int:
+    """Shared memory every CTA of layout ``code`` needs whatever the
+    residual's place: in a cluster Q (m, k), the (q_{i-1}, q_i) pairs, the
+    cluster's candidate pivot columns (two buffers of ``cluster`` columns;
+    one buffer for a CTA alone), the projections and one partial sum per
+    thread; for K3 and K4 (``wide``, f64 norms) one partial norm per
+    thread too. In the grid the candidates lie in global memory and a CTA
+    holds the pivot column, the pairs and the projections: with Q split
+    (1) its share of Q and only that many projections, with Q in global
+    memory (2, 4) k projections, and (3) none of these vectors."""
+    if code == 1:
+        share = -(-k // cluster)
+        vectors = 3 * m + share + share * m
+    elif code in (2, 4):
+        vectors = 3 * m + k
+    elif code == 3:
+        vectors = 0
     else:
         buffers = 2 if cluster > 1 else 1
         vectors = m * k + buffers * cluster * m + 2 * m + k
@@ -154,33 +177,31 @@ def kernel_fits(m: int, k: int, itemsize: int = 4,
     """Whether the kernels take an (m, n) panel at k steps, for any n.
     K1 and K2: Q, replicated in every CTA, has to fit in shared memory
     beside the vectors of a full block; the residual may lie in global
-    memory. K3 and K4 (``wide``) take every panel: the grid layout keeps
-    Q in global memory, and a CTA's vectors too where m is large."""
-    return _basis_bytes(m, k, 1, MAX_THREADS, itemsize, wide, grid=wide,
-                        vectors_in_smem=False) <= SMEM_LIMIT_BYTES
+    memory. K3 and K4 (``wide``) take every panel: the grid layout splits
+    Q over its CTAs or keeps it in global memory, and a CTA's vectors too
+    where m is large."""
+    return _basis_bytes(m, k, 1, MAX_THREADS, itemsize, wide,
+                        3 if wide else 0) <= SMEM_LIMIT_BYTES
 
 
 def layout_at(m: int, n: int, k: int, itemsize: int, cluster: int,
-              wide: bool = False, grid: bool = False) -> PanelLayout | None:
-    """The layout of the panel over ``cluster`` CTAs (a cluster, or with
-    ``grid`` the CTAs of a cooperative grid, whose vectors lie in shared
-    memory where they fit there): the residual slice (m, ceil(n /
-    cluster)), its last R row and its norms in shared memory exactly when
-    they fit there beside the basis, else in global memory; None when not
-    even the basis fits."""
+              wide: bool = False, code: int = 0) -> PanelLayout | None:
+    """The layout ``code`` of the panel over ``cluster`` CTAs (a cluster,
+    or the CTAs of a cooperative grid: ``PanelLayout``): the residual
+    slice (m, ceil(n / cluster)), its last R row and its norms in shared
+    memory exactly when they fit there beside the basis, else in global
+    memory; None when not even the basis fits."""
     width = -(-n // cluster)
     threads = _threads(m, width)
-    vectors = not grid or _basis_bytes(
-        m, k, cluster, threads, itemsize, wide, grid) <= SMEM_LIMIT_BYTES
-    basis = _basis_bytes(m, k, cluster, threads, itemsize, wide, grid,
-                         vectors)
+    basis = _basis_bytes(m, k, cluster, threads, itemsize, wide, code)
+    q_share = -(-k // cluster) if code == 1 else 0
     smem = basis + itemsize * (m * width + width) + (8 if wide else 4) * width
     if smem <= SMEM_LIMIT_BYTES:
-        return PanelLayout(cluster, width, threads, True, smem, grid,
-                           vectors)
+        return PanelLayout(cluster, width, threads, True, smem, code,
+                           q_share)
     if basis <= SMEM_LIMIT_BYTES:
-        return PanelLayout(cluster, width, threads, False, basis, grid,
-                           vectors)
+        return PanelLayout(cluster, width, threads, False, basis, code,
+                           q_share)
     return None
 
 
@@ -208,18 +229,44 @@ def _cluster_layout(m: int, n: int, k: int, itemsize: int,
 
 
 def _grid_layout(m: int, n: int, k: int, itemsize: int) -> PanelLayout:
-    """K3's and K4's layout for a panel that no cluster holds: the fewest
-    CTAs (at most ``MAX_GRID``) whose residual slices all fit in shared
-    memory, with no CTA past the last column; where even ``MAX_GRID``
-    slices do not fit, ``MAX_GRID`` CTAs (or one a column) with the
-    residual in global memory. Fewer CTAs read Q from L2 fewer times a
-    step."""
-    for cluster in range(1, min(MAX_GRID, n) + 1):
-        layout = layout_at(m, n, k, itemsize, cluster, True, grid=True)
-        if layout.resid_in_smem:
-            break
-    cluster = -(-n // layout.width)
-    return layout_at(m, n, k, itemsize, cluster, True, grid=True)
+    """K3's and K4's layout for a panel that no cluster holds, over a
+    count of CTAs (at most ``MAX_GRID``, none past the last column).
+
+    Below ``ROW_SPLIT_ROWS`` rows Q is split over the CTAs (layout 1)
+    wherever the shares fit: beside residual slices that fit too, the
+    fewest CTAs whose slices are at most a warp wide and whose shares at
+    most ``_GRID_SHARE`` columns, else the most (``sweep.py --grids``: a
+    step's column pass shrinks with the slice until a warp spans it, the
+    part of -Q Q^H v with the share); else the most CTAs, the residual in
+    global memory (a slice read from L2 a step costs far less than all of
+    Q read by every CTA: ``sweep.py``'s (1000, 1000) k=600). Where no
+    share fits, Q lies in global memory, read by warps four columns at a
+    time (4); from ``ROW_SPLIT_ROWS`` rows on, by the block over the rows
+    (2; 3 where a CTA's vectors do not fit beside its partial sums). Both
+    take the fewest CTAs whose slices fit in shared memory, else the
+    most."""
+    counts = [g for g in range(1, min(MAX_GRID, n) + 1)
+              if (g - 1) * -(-n // g) < n]
+    code = 2
+    if m < ROW_SPLIT_ROWS:
+        fits = [x for g in counts
+                if (x := layout_at(m, n, k, itemsize, g, True, 1))
+                and x.resid_in_smem]
+        if fits:
+            narrow = [x for x in fits
+                      if x.width <= 32 and x.q_share <= _GRID_SHARE]
+            return narrow[0] if narrow else fits[-1]
+        split = layout_at(m, n, k, itemsize, counts[-1], True, 1)
+        if split is not None:
+            return split
+        code = 4
+
+    def at(g: int) -> PanelLayout:
+        return (layout_at(m, n, k, itemsize, g, True, code)
+                or layout_at(m, n, k, itemsize, g, True, 3))
+
+    fits = [x for g in counts if (x := at(g)).resid_in_smem]
+    return fits[0] if fits else at(counts[-1])
 
 
 @functools.lru_cache(maxsize=1024)
@@ -460,9 +507,11 @@ def _panel(wrapper, a: torch.Tensor, k: int, used: torch.Tensor | None,
     launches = ([(p, 1) for p in range(nb)] if layout.grid else [(0, nb)])
     grid_ws = [None] * 4
     if layout.grid:
-        # Q, the candidates and their bests, and the CTAs' vectors where
-        # they do not fit in shared memory: (cluster, vec_stride(m, k))
-        grid_ws = [torch.empty((k, m), dtype=a.dtype, device=a.device),
+        # Q (with Q split over the CTAs: their parts of -Q Q^H v and v'),
+        # the candidates and their bests, and the CTAs' vectors where they
+        # do not fit in shared memory: (cluster, vec_stride(m, k))
+        q_size = (layout.cluster + 1) * m if layout.q_share else k * m
+        grid_ws = [torch.empty(q_size, dtype=a.dtype, device=a.device),
                    torch.empty((2, layout.cluster, m), dtype=a.dtype,
                                device=a.device),
                    torch.empty((2, layout.cluster, 2), dtype=torch.float64,
@@ -482,7 +531,7 @@ def _panel(wrapper, a: torch.Tensor, k: int, used: torch.Tensor | None,
             if wide:
                 args += [x.data_ptr() if x is not None else None
                          for x in grid_ws]
-                tail = [int(layout.resid_in_smem), int(layout.grid),
+                tail = [int(layout.resid_in_smem), layout.code,
                         NORM_RULES[norms]]
             else:
                 tail = [int(layout.resid_in_smem)]

@@ -1,6 +1,7 @@
 """Times K1-K4 at every cluster size on one NVIDIA card.
 
     python3 -m rusty_compression_tpu_torch.ops.kernels.sweep [--quick | --clocks]
+        [--grids G,G,...]
 
 For each panel shape of the main paths and each cluster size, the layout
 ``layout_at`` gives is forced on the wrapper; the result is held against
@@ -13,8 +14,12 @@ line carries the card's name and power limit and the ptxas reports. The
 layout rule's ``_SPLIT_ELEMENTS`` was set from this table. K3 and K4 (f64,
 c128) run each shape with its norm rule at every cluster that holds Q
 and the residual in shared memory, and at the layout the rule picks (the
-cooperative grid where no cluster holds the panel). ``--quick`` runs one
-launch per layout and no timing: the first check of a new build.
+cooperative grid where no cluster holds the panel); where that grid
+splits Q over its CTAs, also at each count of ``--grids`` (by default the
+most CTAs the grid takes, ``MAX_GRID``), lowered to leave no CTA past the
+last column, where the slices still fit in shared memory.
+``--quick`` runs one launch per layout and no timing: the first check of
+a new build.
 
 ``--clocks`` builds the kernels with ``-DRC_QRCP_CLOCKS`` instead and
 prints, for the layout ``panel_layout`` picks at each shape, the cycles a
@@ -29,6 +34,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 
@@ -50,16 +56,22 @@ SHAPES = {
         ((256, 8192), 256, False, "recompute"),
         ((169, 8192), 169, False, "recompute"),
         ((453, 1500), 453, False, "recompute"),
+        ((500, 500), 480, False, "recompute"),
         ((37, 301), 29, True, "downdate"),
         # gs over the JAX package's 12 MiB working set; the second keeps
         # its CTAs' vectors in global memory
         ((4096, 512), 64, False, "downdate"),
         ((16384, 58), 50, False, "downdate")],
     "qrcp_panel_c128": [
+        ((64, 2048), 64, False, "recompute"),
         ((96, 2048), 96, False, "recompute"),
         ((37, 301), 29, True, "downdate"),
         ((3, 24, 2048), 16, False, "downdate"),
-        ((8192, 40), 32, False, "downdate")],
+        ((8192, 40), 32, False, "downdate"),
+        # below ROW_SPLIT_ROWS rows: shares of Q that fit beside no slice
+        # (the residual in L2), and shares that do not fit (Q in L2)
+        ((1000, 1000), 600, False, "downdate"),
+        ((1900, 2000), 400, False, "recompute")],
 }
 
 
@@ -82,6 +94,27 @@ def device_ms(torch, fn, reps: int = 10) -> float:
 
 CLOCK_PARTS = ("cta_argmax", "candidates_barrier_join", "qhv", "v_update",
                "norm_qi", "column_pass")
+#: The parts of a step of the grid that splits Q over its CTAs (layout 1),
+#: each barrier on its own.
+SPLIT_CLOCK_PARTS = ("argmax_candidates_out", "candidates_barrier",
+                     "join_own_projections_part", "parts_barrier",
+                     "rows_of_v", "v_barrier", "v_in_norm_qi", "column_pass")
+
+
+def ptxas_lines(report: str) -> list[str]:
+    """The registers and spills of each kernel instantiation in a
+    ``-Xptxas -v`` report, each instantiation named as
+    ``<scalar, norm rule, layout>`` (the template's arguments)."""
+    lines = []
+    for line in report.splitlines():
+        name = re.search(r"Function properties for \S*qrcp_panel_kernelI"
+                         r"(\w+?)Li(\d)ELi(\d)E", line)
+        if name:
+            scalar, rule, layout = name.groups()
+            lines.append(f"<{scalar.lstrip('0123456789')}, {rule}, {layout}>")
+        elif "registers" in line or "spill" in line:
+            lines.append(line.strip())
+    return lines
 
 
 def read_clocks(k1, entry: str, reset: bool) -> list[int]:
@@ -105,14 +138,15 @@ def main(argv) -> int:
         return 2
     quick = "--quick" in argv
     clocks = "--clocks" in argv
+    grids = [int(x) for x in argv[argv.index("--grids") + 1].split(",")] \
+        if "--grids" in argv else [k1.MAX_GRID]
     if clocks:
         k1._build_defines = ("RC_QRCP_CLOCKS",)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    reports = {entry: [line.strip() for line in report.splitlines()
-                       if "registers" in line or "spill" in line]
+    reports = {entry: ptxas_lines(report)
                for entry, (_, report) in k1.build().items()}
     print(json.dumps({"card": card, "torch": torch.__version__,
                       "ptxas": reports}), flush=True)
@@ -143,6 +177,12 @@ def main(argv) -> int:
             if wide:   # clusters that hold the panel, and the rule's pick
                 layouts = [x for x in layouts if x and x.resid_in_smem]
                 layouts += [chosen] if chosen not in layouts else []
+                for count in grids if chosen.q_share else ():
+                    count = -(-n // -(-n // min(count, n)))
+                    other = k1.layout_at(m, n, k, a.element_size(), count,
+                                         True, 1)
+                    if other and other.resid_in_smem and other not in layouts:
+                        layouts.append(other)
             for layout in layouts:
                 if layout is None or (clocks and layout != chosen):
                     continue
@@ -168,9 +208,11 @@ def main(argv) -> int:
                     run()
                     torch.cuda.synchronize()
                     cycles = read_clocks(k1, spec.entry, reset=False)
+                    parts = SPLIT_CLOCK_PARTS if layout.code == 1 else \
+                        CLOCK_PARTS
                     row["cycles_per_step"] = {
                         part: round(count / k)
-                        for part, count in zip(CLOCK_PARTS, cycles)}
+                        for part, count in zip(parts, cycles)}
                 elif not quick:
                     row["device_ms"] = device_ms(torch, run)
                 print(json.dumps(row), flush=True)

@@ -941,13 +941,22 @@ def test_example_twin_on_the_card(k1, name):
 
 
 # K3 and K4: (shape, k, mask, norm rule). (32, 1024) is config 2h's core
-# (a cluster), (256, 8192) config 4h's (the cooperative grid, Q in global
-# memory); a ragged masked grid and a masked stack; a tall panel whose CTA
-# vectors lie in global memory.
+# (a cluster), (256, 8192) config 4h's (the cooperative grid, Q split over
+# its CTAs), (453, 1500) the high-accuracy ID example's C^H (10 columns of
+# Q a CTA in f64), (64, 2048) config 6c's c128 core; (1000, 4000) and
+# (1000, 1000) k=600 split grids whose residual lies in L2, (1900, 2000)
+# k=400 one whose c128 shares do not fit (Q in global memory, a warp a
+# column); a ragged masked grid and a masked stack; a tall panel whose Q
+# and CTA vectors lie in global memory.
 _WIDE_CASES = [
     ((32, 1024), 32, False, "downdate"), ((32, 1024), 32, False, "recompute"),
     ((256, 8192), 256, False, "downdate"),
     ((256, 8192), 256, False, "recompute"),
+    ((453, 1500), 453, False, "recompute"),
+    ((64, 2048), 64, False, "recompute"),
+    ((1000, 4000), 32, False, "recompute"),
+    ((1000, 1000), 600, False, "downdate"),
+    ((1900, 2000), 400, False, "recompute"),
     ((169, 8191), 100, True, "recompute"),
     ((2, 40, 600), 30, True, "recompute"),
     ((16384, 58), 40, True, "downdate"),

@@ -216,11 +216,13 @@ def test_every_core_gets_a_layout(port, m, n_, k, itemsize, grid, vectors):
     assert layout.cluster * layout.width >= n_
     assert (layout.cluster - 1) * layout.width < n_   # no CTA past the edge
     basis = k1._basis_bytes(m, k, layout.cluster, layout.threads, itemsize,
-                            True, layout.grid, layout.vectors_in_smem)
+                            True, layout.code)
     slice_bytes = itemsize * (m * layout.width + layout.width) \
         + 8 * layout.width
     assert layout.smem_bytes == basis + (
         slice_bytes if layout.resid_in_smem else 0)
+    # Q is split over the grid's CTAs below ROW_SPLIT_ROWS rows
+    assert bool(layout.q_share) == (grid and m < k1.ROW_SPLIT_ROWS)
     if grid:
         assert layout.cluster <= k1.MAX_GRID
         # Q does not fit beside the slice in any cluster
@@ -229,6 +231,55 @@ def test_every_core_gets_a_layout(port, m, n_, k, itemsize, grid, vectors):
                              for c in k1.CLUSTER_SIZES))
     else:
         assert layout.cluster in k1.CLUSTER_SIZES and layout.resid_in_smem
+
+
+@pytest.mark.parametrize("m,n_,k,itemsize,ctas,share,code", [
+    (256, 8192, 256, 8, 128, 2, 1),    # config 4h's core: 64 columns a CTA
+    (169, 8192, 169, 8, 128, 2, 1),    # 4h: C^H
+    (500, 500, 480, 8, 30, 16, 1),     # the high-accuracy ID example's core
+    (453, 1500, 453, 8, 47, 10, 1),    # and its C^H
+    (64, 2048, 64, 16, 64, 1, 1),      # config 6c's c128 core
+    (1000, 1000, 1000, 16, 125, 8, 1),  # shares fit beside no slice
+    (1900, 2000, 400, 16, 125, 0, 4),  # no share fits: Q in global memory
+    (4096, 512, 64, 8, 128, 0, 2),     # from ROW_SPLIT_ROWS on: Q in L2
+])
+def test_grid_splits_q_over_its_ctas(port, m, n_, k, itemsize, ctas, share,
+                                     code):
+    """The grid rule below ``ROW_SPLIT_ROWS`` rows, Q split over the CTAs:
+    each CTA's share of Q (the columns t = rank mod G), vectors and, where
+    they fit too, residual slice lie in its shared memory, and the shares
+    cover every column of Q once; of the counts (at most ``MAX_GRID``)
+    where the slices fit as well, the fewest whose slices are at most a
+    warp wide and whose shares at most ``_GRID_SHARE`` columns, else the
+    most; where no slice fits beside the shares, the most CTAs. Where no
+    share fits, or from ``ROW_SPLIT_ROWS`` rows on, Q stays in global
+    memory."""
+    k1 = _kernels()
+    layout = k1.panel_layout(m, n_, k, itemsize, True)
+    assert layout.grid and layout.code == code
+    assert (layout.cluster, layout.q_share) == (ctas, share)
+    assert layout.cluster <= k1.MAX_GRID
+    counts = [g for g in range(1, min(k1.MAX_GRID, n_) + 1)
+              if (g - 1) * -(-n_ // g) < n_]    # no CTA past the edge
+    splits = [x for g in counts
+              if (x := k1.layout_at(m, n_, k, itemsize, g, True, 1))]
+    if code != 1:
+        assert not splits or m >= k1.ROW_SPLIT_ROWS
+        return
+    width, threads = layout.width, layout.threads
+    slice_bytes = itemsize * (m * width + width) + 8 * width
+    need = (itemsize * share * m                            # Q's share
+            + itemsize * (3 * m + share + threads) + 8 * threads)
+    assert layout.smem_bytes == need + (
+        slice_bytes if layout.resid_in_smem else 0) <= k1.SMEM_LIMIT_BYTES
+    columns = [t for rank in range(ctas) for t in range(rank, k, ctas)]
+    assert sorted(columns) == list(range(k))
+    assert max(len(range(rank, k, ctas)) for rank in range(ctas)) == share
+    held = [x for x in splits if x.resid_in_smem]
+    assert layout.resid_in_smem == bool(held)
+    narrow = [x.cluster for x in held
+              if x.width <= 32 and x.q_share <= k1._GRID_SHARE]
+    assert ctas == (narrow[0] if narrow else (held or splits)[-1].cluster)
 
 
 @pytest.mark.parametrize("dtype,wrapper", [("float64", "qrcp_panel_f64"),
