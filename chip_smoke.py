@@ -13,7 +13,10 @@ raises, and the script exits non-zero without its result line):
 2. K1 and K2 against their plain version on the card at the main paths'
    panel shapes and at ragged and masked ones (a width that is no
    multiple of the cluster's warps, fewer columns than 32 a CTA, a mask
-   over one CTA's whole slice): pivots exactly equal, q and r within
+   over one CTA's whole slice), and where Q does not replicate in a CTA
+   as one cooperative grid in each layout code 1-4 (config 2's (1024,
+   1024) panel at k = 64 among them; code 4, which the rule gives no f32
+   panel, forced): pivots exactly equal, q and r within
    1e-4, two launches on one panel bitwise equal; the layout the wrapper
    chose (cluster size, residual in shared memory or not, bytes of
    shared memory); median times of 10 launches each (CUDA events around
@@ -32,7 +35,8 @@ raises, and the script exits non-zero without its result line):
    forced (``mode="kernel"``) and ``auto`` (the JAX package's blocked
    RRQR, as the working set is over its 12 MiB bound), CUDA-event times
    of ``pivoted_qr`` and ``batched_column_id`` each, both at cell 14's
-   gates.
+   gates. Then ``pivoted_qr(mode="gs")`` in each dtype: one kernel launch
+   a panel, the plain loop's result, both times.
 3. rSVD (config 3): ``batched_rsvd`` of one 8192^2 f32 block
    G1 diag(geomspace(1, 1e-6, 400)) G2, rank 100, oversample 5, two power
    iterations, Gram small SVD; rel err <= 3 sigma_101 / sigma_1.
@@ -72,10 +76,11 @@ raises, and the script exits non-zero without its result line):
     on its shortlists, the last of them as wide as the rank found.
 11. Config 2: ``hilbert(1024)``, ``QR.compute_from(h, max_rank=64)`` ->
     ``compress(Adaptive(tol))`` -> ``column_id()`` at its defaults; f32 at
-    1e-5 (blocked, K1 picks the pivots over the whole (72, 1024) sketch)
-    and f64 at 1e-8 (K3 picks them over the same sketch); C's columns
-    exact to 1e-5 / 1e-12; rel err <= 10 x the optimal rank-k error + 100
-    eps.
+    1e-5 (one K1 launch over the whole (1024, 1024) panel, a cooperative
+    grid, as the JAX package runs its Pallas kernel there; rank and error
+    printed beside the TPU's) and f64 at 1e-8 (blocked, K3 picks the
+    pivots over the whole (72, 1024) sketch); C's columns exact to 1e-5 /
+    1e-12; rel err <= 10 x the optimal rank-k error + 100 eps.
 12. Config 4b1t: ``sketched_two_sided_id(blk, gen, tol=1e-3, max_rank=64)``
     of phase 4's 16384^2 Laplace block; rel err <= 5e-3, rank <= 64, the
     column gather bitwise; K1 on the (80, 144) shortlist of the 72-row
@@ -331,9 +336,10 @@ def distinct_norm_panel(torch, gen, shape, dtype):
 
 
 #: Phase 2's cases, (shape, k, mask): mask False, True (every seventh
-#: column used) or "slice" (the first CTA's whole slice used). The first
-#: case of each kernel is the shape whose times go into the ``kernels``
-#: line.
+#: column used) or "slice" (the first CTA's whole slice used); for K1 and
+#: K2 an optional fourth element forces a grid layout code over the most
+#: CTAs the grid takes. The first case of each kernel is the shape whose
+#: times go into the ``kernels`` line.
 KERNEL_CASES = {
     "qrcp_panel": [
         ((24, 16384), 16, False),     # sketch of the 16384^2 block
@@ -352,7 +358,19 @@ KERNEL_CASES = {
         # a whole block of the stack, K1 forced: auto goes blocked there
         # (its working set is over the JAX package's 12 MiB bound), and
         # the route line times both
-        ((8, 2048, 2048), 16, False)],
+        ((8, 2048, 2048), 16, False),
+        # Q does not replicate in a CTA: one cooperative grid a panel.
+        # Config 2 in f32 (layout 1, Q split over 32 CTAs), ragged and
+        # masked, a stack of two, 16 columns of Q a CTA, the blocked pivot
+        # rule's shortlist at block_size=256; gs at (4096, 100) and a
+        # 2048-row panel (2, Q in L2); 20000 rows (3, the CTAs' vectors in
+        # global memory); layout 4 (warps over Q in L2), which the rule
+        # gives no f32 panel, forced (the fourth element: its code)
+        ((1024, 1024), 64, False), ((1024, 1021), 64, True),
+        ((2, 1024, 1024), 64, False), ((640, 192), 96, False),
+        ((264, 512), 256, True), ((4096, 100), 100, False),
+        ((2048, 256), 64, False), ((20000, 40), 32, False),
+        ((1000, 1000), 200, False, 4)],
     "qrcp_panel_complex": [
         ((53, 8192), 43, False),      # core of the 8192^2 complex ID
         ((43, 8192), 43, False), ((136, 256), 128, True),
@@ -363,7 +381,12 @@ KERNEL_CASES = {
         # two-sided ID, the LQ of C, the full-width pivot rule of
         # compress(RANK(27, "two_sided_id"))'s 35-row sketch
         ((37, 1024), 27, False), ((27, 1024), 27, False),
-        ((35, 1024), 27, True)],
+        ((35, 1024), 27, True),
+        # K2 on the grid: layout 1, ragged and masked, a stack of two; gs
+        # at (2048, 100) (2); 12000 rows (3); layout 4 forced
+        ((1024, 512), 64, False), ((1024, 509), 64, True),
+        ((2, 1024, 512), 64, False), ((2048, 100), 100, False),
+        ((12000, 40), 32, False), ((1000, 1000), 200, False, 4)],
     # K3 and K4: (shape, k, mask, norm rule)
     "qrcp_panel_f64": [
         ((256, 8192), 256, False, "recompute"),   # config 4h's core
@@ -412,16 +435,24 @@ class KernelChecks:
         self.main = {}
 
     def hold(self, name: str, shape, k: int, masked, norms=None,
-             reps: int = 10) -> None:
+             reps: int = 10, code=None) -> None:
         from rusty_compression_tpu_torch.ops.kernels.sweep import device_ms
 
         torch, k1 = self.torch, self.k1
         wrapper, spec = getattr(k1, name), k1.KERNELS[name]
         wide, tol = spec.wide, spec.tol
         rule = {"norms": norms} if wide else {}
-        fn = lambda a, k, used: wrapper(a, k, used=used, **rule)  # noqa: E731
         a = distinct_norm_panel(torch, self.gen, shape, spec.dtype)
-        layout = k1.panel_layout(*shape[-2:], k, a.element_size(), wide)
+        m, n = shape[-2:]
+        if code is None:
+            layout = k1.panel_layout(m, n, k, a.element_size(), wide)
+            fn = lambda a, k, used: wrapper(  # noqa: E731
+                a, k, used=used, **rule)
+        else:
+            layout = k1.layout_at(m, n, k, a.element_size(),
+                                  k1.grid_counts(n)[-1], wide, code)
+            fn = lambda a, k, used: k1._panel(  # noqa: E731
+                wrapper, a, k, used, layout, norms)
         used = None
         if masked:
             used = torch.zeros(shape[-1], dtype=torch.bool, device="cuda")
@@ -449,7 +480,8 @@ class KernelChecks:
                  **panel_bound(shape, k, a.dtype, masked)}
         say("2-kernel", kernel=name, shape=list(shape), k=k,
             used_mask=masked, **rule, cluster=layout.cluster,
-            layout=layout.code, resid_in_smem=layout.resid_in_smem,
+            layout=layout.code, forced=code is not None,
+            resid_in_smem=layout.resid_in_smem,
             q_share=layout.q_share,
             smem_bytes=layout.smem_bytes, threads=layout.threads,
             pivots_equal=True, repeat_bitwise=True, max_abs_err=err, **times)
@@ -480,8 +512,12 @@ class KernelChecks:
 def phase_kernel(torch, k1, gen) -> KernelChecks:
     checks = KernelChecks(torch, k1, gen)
     for name, cases in KERNEL_CASES.items():
-        for shape, k, masked, *norms in cases:
-            checks.hold(name, shape, k, masked, *norms)
+        wide = k1.KERNELS[name].wide
+        for shape, k, masked, *extra in cases:
+            if wide:   # the norm rule
+                checks.hold(name, shape, k, masked, *extra)
+            else:      # a forced grid layout code
+                checks.hold(name, shape, k, masked, code=(extra or [None])[0])
     torch.cuda.synchronize()
     return checks
 
@@ -606,25 +642,28 @@ def phase_route(torch, gen, count: int = 8, size: int = 2048,
 
 
 def phase_route_gs(torch, k1) -> None:
-    """f64 / c128 ``pivoted_qr(mode="gs")`` on the card: K3 / K4 at every
-    shape, one launch a call (a panel a launch on the grid), with no plain
-    fallback (a panel over the JAX package's 12 MiB working
+    """``pivoted_qr(mode="gs")`` on the card: the dtype's kernel (K1-K4) at
+    every shape, one launch a call (a panel a launch on the grid), with no
+    plain fallback (an f64 panel over the JAX package's 12 MiB working
     set, a stack of four dimensions, a tall c128 panel whose CTA vectors
-    lie in global memory), ``(q, r, ind)`` as the plain loop's on the same
-    tensor (pivots equal, q and r within the kernel's tolerance). CUDA-event
-    medians of the call and of the plain loop."""
+    lie in global memory, f32 and c64 panels whose Q does not replicate in
+    a CTA), ``(q, r, ind)`` as the plain loop's on the same tensor (pivots
+    equal, q and r within the kernel's tolerance). CUDA-event medians of
+    the call and of the plain loop."""
     from rusty_compression_tpu_torch import pivoted_qr
     from rusty_compression_tpu_torch.ops.pivoted_qr import _full_permutation
 
     gen = torch.Generator(device="cuda").manual_seed(26)
     for shape, k, dtype in (((4096, 512), 64, torch.float64),
                             ((2, 2, 300, 200), 40, torch.float64),
-                            ((8192, 40), 32, torch.complex128)):
+                            ((8192, 40), 32, torch.complex128),
+                            ((4096, 100), 100, torch.float32),
+                            ((2048, 100), 100, torch.complex64)):
         spec = k1.KERNELS[k1.PANEL_KERNELS[dtype].__name__]
         wrapper = k1.PANEL_KERNELS[dtype]
         a = distinct_norm_panel(torch, gen, shape, dtype)
         panels = math.prod(shape[:-2])
-        layout = k1.panel_layout(*shape[-2:], k, a.element_size(), True)
+        layout = k1.panel_layout(*shape[-2:], k, a.element_size(), spec.wide)
         want = panels if layout.grid else 1   # the grid: a launch a panel
         before = wrapper.launch_count
         q, r, ind = pivoted_qr(a, k, mode="gs")
@@ -640,7 +679,7 @@ def phase_route_gs(torch, k1) -> None:
               f"gs at {shape} {dtype}: pivots or factors ({err}) differ "
               f"from the plain loop's")
         say("2-route-gs", shape=list(shape), k=k, dtype=str(dtype),
-            launches=want, grid=layout.grid,
+            kernel=spec.entry, launches=want, layout=layout.code,
             vectors_in_smem=layout.vectors_in_smem,
             pivots_equal=True, max_abs_err=err,
             gs_ms=event_ms(lambda: pivoted_qr(a, k, mode="gs")),
@@ -939,17 +978,28 @@ def phase_adaptive_qr(torch, rt, k1, gen, size: int = 8192):
     return run
 
 
+#: Config 2 in f32 on the TPU, where ``auto`` took the Pallas kernel over
+#: the whole panel (``BENCH_SUITE.jsonl``, ``2-column-id``): printed beside
+#: the card's rank and error, not a gate.
+TPU_CONFIG_2 = {"rank": 10, "rel_err": 1.930e-4}
+
+
 def phase_hilbert(torch, rt, k1, gen, size: int = 1024):
-    """Config 2, through the call the benchmark makes, at its defaults. Q
-    of a (1024, 64) panel does not fit K1, so ``auto`` goes blocked with
-    one 64-wide panel, and at small rank that runs the pivot rule over the
-    whole width of the (72, 1024) sketch: K1 in f32, K3 in f64."""
+    """Config 2, through the call the benchmark makes, at its defaults. In
+    f32 ``auto`` takes K1 over the whole (1024, 1024) panel at k = 64, as
+    the JAX package takes its Pallas kernel there (a working set of 8.9 MB,
+    under its 12 MiB bound): one launch, a cooperative grid, since Q does
+    not replicate in a CTA. In f64 it goes blocked with one 64-wide panel,
+    and at small rank runs the pivot rule over the whole width of the (72,
+    1024) sketch: K3."""
     from rusty_compression_tpu_torch.utils.kernel_matrices import hilbert
 
     runs = []
-    for dtype, tol, col_gate, kernel in (
-            (torch.float32, 1e-5, 1e-5, k1.qrcp_panel),
-            (torch.float64, 1e-8, 1e-12, k1.qrcp_panel_f64)):
+    for dtype, tol, col_gate, kernel, shape in (
+            (torch.float32, 1e-5, 1e-5, k1.qrcp_panel,
+             ((1, size, size), 64, False)),
+            (torch.float64, 1e-8, 1e-12, k1.qrcp_panel_f64,
+             ((1, 72, size), 64, True, "downdate"))):
         h = hilbert(size, dtype=dtype, device=gen.device)
         s = torch.linalg.svdvals(h.double())
 
@@ -958,11 +1008,13 @@ def phase_hilbert(torch, rt, k1, gen, size: int = 1024):
             return qr.compress(rt.CompressionType.ADAPTIVE(tol)).column_id()
 
         before = kernel.launch_count
+        kernel.launched_shapes.clear()
         cid = run()
         torch.cuda.synchronize()
         launches = kernel.launch_count - before
-        check(launches == 1,
-              f"config 2 ({dtype}): {launches} {kernel.__name__} launches")
+        check(launches == 1 and kernel.launched_shapes == {shape},
+              f"config 2 ({dtype}): {launches} {kernel.__name__} launches "
+              f"at {kernel.launched_shapes}")
         err = float(rt.rel_diff_fro(cid.to_mat(), h))
         e_opt = float(torch.sqrt((s[cid.rank:] ** 2).sum() / (s ** 2).sum()))
         gate = 10 * e_opt + 100 * float(torch.finfo(dtype).eps)
@@ -975,7 +1027,9 @@ def phase_hilbert(torch, rt, k1, gen, size: int = 1024):
         say("11-config-2-hilbert", size=size, dtype=str(dtype), tol=tol,
             rank=cid.rank, rel_err=err, e_opt=e_opt, gate=gate,
             column_abs_err=col_err, kernel=kernel.__name__,
+            launched=[list(shape[0]), *shape[1:]],
             launches_per_call=launches, ms=ms,
+            tpu=TPU_CONFIG_2 if dtype == torch.float32 else None,
             gbps=size * size * h.element_size() / (ms * 1e-3) / 1e9)
         runs.append(run)
     return lambda: [run() for run in runs]

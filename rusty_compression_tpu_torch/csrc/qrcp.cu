@@ -64,6 +64,15 @@
 //   for independent chains; q_out is written (m, k) row-major at the end.
 // - Four block barriers a step beside the cluster barrier, and small
 //   panels run as one CTA with as few as 128 threads.
+// - Where Q, replicated in every CTA, does not fit one CTA's shared memory
+//   (m k + 3 m + k + 1024 elements in 227 KB: k <= 52 at 1024 rows), the
+//   panel runs as one cooperative grid of up to 128 CTAs, one panel a
+//   launch, in K3's layouts (qrcp_f64.cu): below 2048 rows Q split over
+//   the CTAs' shared memory, from 2048 rows on Q in global memory. The
+//   Pallas kernel took any panel whose working set fit in VMEM (config
+//   2's (1024, 1024) at k = 64 among them); with the grid K1 takes every
+//   panel. The grid's step is a chain of three barriers and L2 round
+//   trips, slower a step than a cluster's.
 // Every dot product accumulates in f32. What is left of a step is a chain
 // of dependent latencies (two warp argmaxes, the barrier, two reduction
 // rounds, a norm) of a few microseconds whatever the panel's size.
@@ -74,21 +83,26 @@
 
 extern "C" {
 
-// Launches one cluster of `cluster` CTAs per panel of the (batch, m, n)
-// stack `a` on `stream`. `used` is null or (batch, n) with > 0 marking
-// excluded columns. `resid` (batch, m, n) and `norms` (batch, n) are
-// scratch for the global-workspace layout and may be null when
-// `resid_in_smem` is set. `threads` and `smem_bytes` are the block size
-// and the dynamic shared memory of the layout. Returns 0, the CUDA error
-// of the launch, -1 when the card cannot schedule such a cluster, or -2
-// for layout numbers that do not fit together; does not synchronise.
+// Launches one group of `group` CTAs per panel of the (batch, m, n) stack
+// `a` on `stream`, in the layout `layout`: 0 a cluster, 1-4 the
+// cooperative grid of rc_qrcp_panel_f64 (qrcp_f64.cu), which also says
+// what the workspaces `qws`, `cand`, `best` (here 8 bytes an entry) and
+// `vecs` hold; a grid runs one panel (batch 1), and they are null for a
+// cluster. `used` is null or (batch, n) with > 0 marking excluded columns.
+// `resid` (batch, m, n) and `norms` (batch, n) are scratch for the
+// global-memory residual and may be null when `resid_in_smem` is set.
+// `threads` and `smem_bytes` are the block size and the dynamic shared
+// memory of the layout. The norms are downdated (kDowndate). Returns 0,
+// the CUDA error of the launch, -1 when the card cannot place the group,
+// or -2 for layout numbers that do not fit together; does not synchronise.
 int rc_qrcp_panel_f32(const float* a, const float* used, float* q, float* r,
-                      int* piv, float* resid, float* norms, int batch, int m,
-                      int n, int k, int cluster, int threads,
-                      int resid_in_smem, int smem_bytes, void* stream) {
-  return rc_qrcp::launch_panel<float>(a, used, q, r, piv, resid, norms, batch,
-                                      m, n, k, cluster, threads,
-                                      resid_in_smem, smem_bytes, stream);
+                      int* piv, float* resid, float* norms, float* qws,
+                      float* cand, void* best, float* vecs, int batch, int m,
+                      int n, int k, int group, int threads, int resid_in_smem,
+                      int layout, int smem_bytes, void* stream) {
+  return rc_qrcp::launch_rule<float, rc_qrcp::kDowndate>(
+      a, used, q, r, piv, resid, norms, qws, cand, best, vecs, batch, m, n, k,
+      group, threads, resid_in_smem, layout, smem_bytes, stream);
 }
 
 #ifdef RC_QRCP_CLOCKS

@@ -45,26 +45,26 @@
 // (53, 8192) core does not (a slice of 512 columns is 217 KB beside
 // 18 KB of Q): its slices stay in the global workspace (L2), now pulled
 // on by sixteen SMs, each thread with several independent loads in
-// flight (the row loop is unrolled, a warp's accesses coalesced).
+// flight (the row loop is unrolled, a warp's accesses coalesced). A
+// panel whose Q does not fit a CTA beside the vectors (m k + 3 m + k +
+// 1024 elements in 227 KB, half K1's count) runs as K1's does then: one
+// cooperative grid a panel (qrcp_f64.cu).
 
 #include "qrcp_common.cuh"
 
 extern "C" {
 
-// Launches one cluster of `cluster` CTAs per panel of the (batch, m, n)
-// complex64 stack `a` (interleaved re, im floats) on `stream`. `used` is
-// null or (batch, n) f32 with > 0 marking excluded columns. `resid`
-// (batch, m, n) complex64 and `norms` (batch, n) f32 are scratch for the
-// global-workspace layout and may be null when `resid_in_smem` is set.
-// Returns as rc_qrcp_panel_f32 does; does not synchronise.
+// As rc_qrcp_panel_f32, for a complex64 stack (interleaved re, im
+// floats): q, r, resid, qws, cand and vecs complex64, norms f32.
 int rc_qrcp_panel_c64(const void* a, const float* used, void* q, void* r,
-                      int* piv, void* resid, float* norms, int batch, int m,
-                      int n, int k, int cluster, int threads,
-                      int resid_in_smem, int smem_bytes, void* stream) {
-  return rc_qrcp::launch_panel<float2>(
+                      int* piv, void* resid, float* norms, void* qws,
+                      void* cand, void* best, void* vecs, int batch, int m,
+                      int n, int k, int group, int threads, int resid_in_smem,
+                      int layout, int smem_bytes, void* stream) {
+  return rc_qrcp::launch_rule<float2, rc_qrcp::kDowndate>(
       (const float2*)a, used, (float2*)q, (float2*)r, piv, (float2*)resid,
-      norms, batch, m, n, k, cluster, threads, resid_in_smem, smem_bytes,
-      stream);
+      norms, (float2*)qws, (float2*)cand, best, (float2*)vecs, batch, m, n, k,
+      group, threads, resid_in_smem, layout, smem_bytes, stream);
 }
 
 #ifdef RC_QRCP_CLOCKS

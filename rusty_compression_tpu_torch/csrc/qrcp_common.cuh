@@ -3,8 +3,8 @@
 // and K4 (qrcp_c128.cu, complex128 as interleaved double2): the scalar
 // operations of the four types, the warp reductions, the step loop written
 // once over the scalar type, and its launchers. The design is described in
-// qrcp.cu; what K3 and K4 add (the norm rules, the grid layout) in
-// qrcp_f64.cu.
+// qrcp.cu; the norm rules K3 and K4 add, and the grid layouts all four
+// take where Q does not fit a cluster, in qrcp_f64.cu.
 
 #pragma once
 
@@ -255,14 +255,15 @@ __host__ __device__ inline int q_share(int k, int group) {
 
 // Dynamic shared memory of one CTA. In a cluster: the (q_{i-1}, q_i) pairs
 // (m), Q (m, k), the cluster's candidate columns (buffers x cluster x m),
-// the projections (k) and one partial sum per thread. In the grid (K3, K4)
-// the candidates lie in global memory, and the CTA keeps the pairs, the
-// pivot column (m) and the projections: with Q split (kGridSmem) its share
-// of Q (q_share columns) and as many projections; with Q in global memory
-// k projections (kGridTall, kGridWarps), or none of these vectors where m is too large
-// for them (kGridGlobal: they lie in the CTA's part of a global workspace).
-// With f64 norms, one partial norm per thread. In the shared-memory layout
-// of the residual, the slice (m, w), its last R row (w) and its norms (w).
+// the projections (k) and one partial sum per thread. In the grid the
+// candidates lie in global memory, and the CTA keeps the pairs, the pivot
+// column (m) and the projections: with Q split (kGridSmem) its share of Q
+// (q_share columns) and as many projections; with Q in global memory k
+// projections (kGridTall, kGridWarps), or none of these vectors where m is
+// too large for them (kGridGlobal: they lie in the CTA's part of a global
+// workspace). With f64 norms, and in the grid, one partial norm per
+// thread. In the shared-memory layout of the residual, the slice (m, w),
+// its last R row (w) and its norms (w).
 // The wrapper's layout rule computes the same number.
 __host__ __device__ inline size_t smem_need(int m, int k, int w, int group,
                                             int threads, int resid_in_smem,
@@ -279,7 +280,7 @@ __host__ __device__ inline size_t smem_need(int m, int k, int w, int group,
     vectors = (size_t)3 * m + k;
   }
   size_t bytes = itemsize * (vectors + threads);
-  if (normsize == 8) bytes += normsize * threads;
+  if (normsize == 8 || layout != kCluster) bytes += normsize * threads;
   if (resid_in_smem) {
     bytes += itemsize * ((size_t)m * w + w) + normsize * w;
   }
@@ -388,10 +389,9 @@ __device__ __forceinline__ ArgMax<Norm<T>> column_pass(
 // row and its norms lie in the CTA's shared memory (resid_in_smem) or in
 // its part of global memory (resid_ws, norms_ws, r_out).
 //
-// The group is a thread-block cluster (kLayout kCluster: K1, K2, and K3/K4
-// where Q fits in shared memory) or the whole cooperative grid of one
-// launch (kGridSmem, kGridTall, kGridGlobal, kGridWarps: K3/K4 where it
-// does not). In a cluster every CTA holds Q and the candidate columns come
+// The group is a thread-block cluster (kLayout kCluster, where Q fits in
+// every CTA's shared memory) or the whole cooperative grid of one launch
+// (kGridSmem, kGridTall, kGridGlobal, kGridWarps, where it does not). In a cluster every CTA holds Q and the candidate columns come
 // through distributed shared memory. In the grid the candidates come through
 // global memory (cand_ws, best_ws) behind a grid barrier, and Q is split
 // over the CTAs' shared memory (kGridSmem: q_ws then holds the CTAs' parts
@@ -479,9 +479,11 @@ qrcp_panel_kernel(const T* __restrict__ a, const float* __restrict__ used,
   // kGridSmem: the CTAs' parts of -Q Q^H v (nranks, m), then v' (m)
   T* parts = q_ws + panel * (size_t)(nranks + 1) * m;
   T* vnew = parts + (size_t)nranks * m;
-  N* partn = reinterpret_cast<N*>(part + nthreads);  // (nthreads), f64 norms
-  T* resid_s = sizeof(N) == 8 ? reinterpret_cast<T*>(partn + nthreads)
-                              : part + nthreads;  // slice (m, w)
+  // (nthreads) partial norms, with f64 norms and in the grid
+  N* partn = reinterpret_cast<N*>(part + nthreads);
+  T* resid_s = (sizeof(N) == 8 || kGrid)
+                   ? reinterpret_cast<T*>(partn + nthreads)
+                   : part + nthreads;  // slice (m, w)
   T* srow_s = resid_s + (size_t)m * w;     // (w) last R row of the slice
   N* norms_s = reinterpret_cast<N*>(srow_s + w);  // (w)
   T* resid_g = resid_ws + panel * (size_t)m * n + g.c0;
@@ -929,27 +931,16 @@ int launch(const T* a, const float* used, T* q, T* r, int* piv, T* resid_ws,
   return (int)cudaGetLastError();
 }
 
-// K1 and K2: a cluster, the downdated norms.
-template <typename T>
-int launch_panel(const T* a, const float* used, T* q, T* r, int* piv,
-                 T* resid_ws, float* norms_ws, int batch, int m, int n, int k,
-                 int cluster, int threads, int resid_in_smem, int smem_bytes,
-                 void* stream) {
-  return launch<T, kDowndate, kCluster>(a, used, q, r, piv, resid_ws,
-                                        norms_ws, nullptr, nullptr, nullptr,
-                                        nullptr, batch, m, n, k, cluster,
-                                        threads, resid_in_smem, smem_bytes,
-                                        stream);
-}
-
-// K3 and K4 under one norm rule, in the layout `layout` (kCluster,
-// kGridSmem, kGridTall, kGridGlobal or kGridWarps).
+// One norm rule in the layout `layout` (kCluster, kGridSmem, kGridTall,
+// kGridGlobal or kGridWarps); `best_ws` holds ArgMax<Norm<T>>. K1 and K2
+// take kDowndate.
 template <typename T, int kRule>
 int launch_rule(const T* a, const float* used, T* q, T* r, int* piv,
-                T* resid_ws, double* norms_ws, T* q_ws, T* cand_ws,
-                ArgMax<double>* best, T* vec_ws, int batch, int m, int n,
-                int k, int group, int threads, int resid_in_smem, int layout,
+                T* resid_ws, Norm<T>* norms_ws, T* q_ws, T* cand_ws,
+                void* best_ws, T* vec_ws, int batch, int m, int n, int k,
+                int group, int threads, int resid_in_smem, int layout,
                 int smem_bytes, void* stream) {
+  auto* best = static_cast<ArgMax<Norm<T>>*>(best_ws);
   switch (layout) {
     case kCluster:
       return launch<T, kRule, kCluster>(a, used, q, r, piv, resid_ws,
@@ -988,21 +979,20 @@ int launch_rule(const T* a, const float* used, T* q, T* r, int* piv,
 // K3 and K4: the norm rule and the layout, as the wrapper asks.
 template <typename T>
 int launch_wide(const T* a, const float* used, T* q, T* r, int* piv,
-                T* resid_ws, double* norms_ws, T* q_ws, T* cand_ws,
+                T* resid_ws, Norm<T>* norms_ws, T* q_ws, T* cand_ws,
                 void* best_ws, T* vec_ws, int batch, int m, int n, int k,
                 int group, int threads, int resid_in_smem, int layout,
                 int norm_rule, int smem_bytes, void* stream) {
-  auto* best = static_cast<ArgMax<double>*>(best_ws);
   if (norm_rule == kDowndate) {
     return launch_rule<T, kDowndate>(a, used, q, r, piv, resid_ws, norms_ws,
-                                     q_ws, cand_ws, best, vec_ws, batch, m, n,
-                                     k, group, threads, resid_in_smem, layout,
-                                     smem_bytes, stream);
+                                     q_ws, cand_ws, best_ws, vec_ws, batch, m,
+                                     n, k, group, threads, resid_in_smem,
+                                     layout, smem_bytes, stream);
   }
   if (norm_rule == kRecompute) {
     return launch_rule<T, kRecompute>(a, used, q, r, piv, resid_ws, norms_ws,
-                                      q_ws, cand_ws, best, vec_ws, batch, m,
-                                      n, k, group, threads, resid_in_smem,
+                                      q_ws, cand_ws, best_ws, vec_ws, batch,
+                                      m, n, k, group, threads, resid_in_smem,
                                       layout, smem_bytes, stream);
   }
   return kErrBadLayout;

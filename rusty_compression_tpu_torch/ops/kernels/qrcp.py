@@ -12,13 +12,13 @@ loop (norm rule ``"downdate"``, K1's) and LAPACK ``?geqp3`` for the tol
 afresh in every step's pass). All four instantiate the one step loop of
 ``csrc/qrcp_common.cuh``: one panel over a thread-block cluster, the
 columns split over its CTAs, each CTA's residual slice in its shared
-memory where it fits; K3 and K4 run the panels whose Q does not fit a
-cluster as one cooperative grid (``panel_layout`` decides, from the shape
-alone). Each source is compiled for ``sm_90a`` with ``nvcc`` into
-``_build/`` at the first use of any kernel on a CUDA tensor (one ``nvcc``
-per source, started together) and bound through ``ctypes`` (a plain C
-interface, so a build takes seconds and needs neither ninja nor PyTorch's
-headers).
+memory where it fits; a panel whose Q does not fit a cluster runs as one
+cooperative grid (``panel_layout`` decides, from the shape alone), so
+every kernel takes every panel. Each source is compiled for ``sm_90a``
+with ``nvcc`` into ``_build/`` at the first use of any kernel on a CUDA
+tensor (one ``nvcc`` per source, started together) and bound through
+``ctypes`` (a plain C interface, so a build takes seconds and needs
+neither ninja nor PyTorch's headers).
 
 Each wrapper runs the plain version for a tensor on the CPU and launches
 its kernel for a CUDA tensor, or raises; none falls back. Each counts its
@@ -57,8 +57,8 @@ _BUILD_DIR = _PKG / "_build"
 class KernelSpec:
     """One kernel: its C entry point, its source under ``csrc/``, the dtype
     its wrapper takes (``label`` names it in errors), whether it is one of
-    K3 and K4 (``wide``: f64 norms, the two norm rules, the grid layout)
-    and the entry-wise tolerance of its q and r against the plain version
+    K3 and K4 (``wide``: f64 norms, the two norm rules) and the entry-wise
+    tolerance of its q and r against the plain version
     (the same arithmetic summed in another order)."""
     entry: str
     source: str
@@ -89,13 +89,14 @@ SMEM_LIMIT_BYTES = 232448 - 1024
 #: Cluster sizes the kernels take (16 is Hopper's non-portable maximum).
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
 MAX_THREADS = 1024
-#: CTAs of K3's and K4's cooperative grid at most: one an SM, under the
-#: H100 SXM's 132.
+#: CTAs of the cooperative grid at most: one an SM, under the H100 SXM's
+#: 132.
 MAX_GRID = 128
 #: From this many rows on the grid keeps Q in global memory and spreads a
 #: step's reorthogonalization over a CTA's threads by rows (layouts 2, 3).
 ROW_SPLIT_ROWS = 2048
-#: The norm rules of K3 and K4, as the C entry points number them.
+#: The norm rules of K3 and K4, as the C entry points number them (K1 and
+#: K2 downdate).
 NORM_RULES = {"downdate": 0, "recompute": 1}
 #: Residual elements a CTA may hold before the layout rule splits the
 #: panel over a larger cluster: below it a step's fixed cost (barriers,
@@ -112,9 +113,9 @@ class PanelLayout:
     ``smem_bytes`` of dynamic shared memory; the residual slice in the
     owner's shared memory (``resid_in_smem``) or in a global workspace.
     ``code`` is the kernel's layout template, as the C entry points number
-    it: 0 a cluster; K3 and K4 also run one cooperative grid (``grid``),
-    1 with each CTA holding ``q_share`` columns of Q in its shared memory
-    (the columns t = rank mod ``cluster``), 2 with Q in global memory and
+    it: 0 a cluster; else one cooperative grid (``grid``), 1 with each
+    CTA holding ``q_share`` columns of Q in its shared memory (the
+    columns t = rank mod ``cluster``), 2 with Q in global memory and
     each CTA's block spread over the rows, 3 the same with a CTA's vectors
     there too (``vectors_in_smem`` false), 4 with Q in global memory and
     each warp taking four columns of Q at a time."""
@@ -136,16 +137,18 @@ class PanelLayout:
 
 
 def _basis_bytes(m: int, k: int, cluster: int, threads: int,
-                 itemsize: int, wide: bool = False, code: int = 0) -> int:
+                 itemsize: int, normsize: int = 4, code: int = 0) -> int:
     """Shared memory every CTA of layout ``code`` needs whatever the
     residual's place: in a cluster Q (m, k), the (q_{i-1}, q_i) pairs, the
     cluster's candidate pivot columns (two buffers of ``cluster`` columns;
     one buffer for a CTA alone), the projections and one partial sum per
-    thread; for K3 and K4 (``wide``, f64 norms) one partial norm per
-    thread too. In the grid the candidates lie in global memory and a CTA
+    thread. In the grid the candidates lie in global memory and a CTA
     holds the pivot column, the pairs and the projections: with Q split
     (1) its share of Q and only that many projections, with Q in global
-    memory (2, 4) k projections, and (3) none of these vectors."""
+    memory (2, 4) k projections, and (3) none of these vectors. With
+    8-byte norms (``normsize``: K3, K4), and in the grid at either norm
+    size, one partial norm per thread too, as the C side's ``smem_need``
+    counts."""
     if code == 1:
         share = -(-k // cluster)
         vectors = 3 * m + share + share * m
@@ -156,7 +159,8 @@ def _basis_bytes(m: int, k: int, cluster: int, threads: int,
     else:
         buffers = 2 if cluster > 1 else 1
         vectors = m * k + buffers * cluster * m + 2 * m + k
-    return itemsize * (vectors + threads) + (8 * threads if wide else 0)
+    partial_norms = normsize * threads if normsize == 8 or code else 0
+    return itemsize * (vectors + threads) + partial_norms
 
 
 def _threads(m: int, width: int) -> int:
@@ -174,14 +178,19 @@ def _threads(m: int, width: int) -> int:
 
 def kernel_fits(m: int, k: int, itemsize: int = 4,
                 wide: bool = False) -> bool:
-    """Whether the kernels take an (m, n) panel at k steps, for any n.
-    K1 and K2: Q, replicated in every CTA, has to fit in shared memory
-    beside the vectors of a full block; the residual may lie in global
-    memory. K3 and K4 (``wide``) take every panel: the grid layout splits
-    Q over its CTAs or keeps it in global memory, and a CTA's vectors too
-    where m is large."""
-    return _basis_bytes(m, k, 1, MAX_THREADS, itemsize, wide,
-                        3 if wide else 0) <= SMEM_LIMIT_BYTES
+    """Whether the kernels take an (m, n) panel at k steps, for any n: true
+    for all four. The grid layout that needs the least shared memory
+    (3: Q and a CTA's vectors in global memory) keeps only a partial sum
+    and a partial norm per thread there, whatever m and k."""
+    return _basis_bytes(m, k, 1, MAX_THREADS, itemsize, 8 if wide else 4,
+                        3) <= SMEM_LIMIT_BYTES
+
+
+def _q_replicates(m: int, k: int, itemsize: int) -> bool:
+    """Whether Q, replicated in every CTA of a cluster, fits in shared
+    memory beside the vectors of a full block: K1's and K2's domain of
+    cluster layouts (with the residual in shared memory or in L2)."""
+    return _basis_bytes(m, k, 1, MAX_THREADS, itemsize) <= SMEM_LIMIT_BYTES
 
 
 def layout_at(m: int, n: int, k: int, itemsize: int, cluster: int,
@@ -193,9 +202,10 @@ def layout_at(m: int, n: int, k: int, itemsize: int, cluster: int,
     memory; None when not even the basis fits."""
     width = -(-n // cluster)
     threads = _threads(m, width)
-    basis = _basis_bytes(m, k, cluster, threads, itemsize, wide, code)
+    normsize = 8 if wide else 4
+    basis = _basis_bytes(m, k, cluster, threads, itemsize, normsize, code)
     q_share = -(-k // cluster) if code == 1 else 0
-    smem = basis + itemsize * (m * width + width) + (8 if wide else 4) * width
+    smem = basis + itemsize * (m * width + width) + normsize * width
     if smem <= SMEM_LIMIT_BYTES:
         return PanelLayout(cluster, width, threads, True, smem, code,
                            q_share)
@@ -212,7 +222,10 @@ def _cluster_layout(m: int, n: int, k: int, itemsize: int,
     ``_SPLIT_ELEMENTS`` residual elements. A panel whose slice fits no
     cluster keeps its residual in global memory and takes the largest
     cluster that leaves a CTA at least a warp of columns (K1, K2), or
-    has no cluster layout (K3, K4: it goes to the grid)."""
+    has no cluster layout (K3, K4: it goes to the grid). K1 and K2 have
+    none either where Q does not replicate (``_q_replicates``)."""
+    if not (wide or _q_replicates(m, k, itemsize)):
+        return None
     layouts = [layout for cluster in CLUSTER_SIZES
                if (layout := layout_at(m, n, k, itemsize, cluster, wide))]
     chosen = None
@@ -228,9 +241,17 @@ def _cluster_layout(m: int, n: int, k: int, itemsize: int,
     return chosen
 
 
-def _grid_layout(m: int, n: int, k: int, itemsize: int) -> PanelLayout:
-    """K3's and K4's layout for a panel that no cluster holds, over a
-    count of CTAs (at most ``MAX_GRID``, none past the last column).
+def grid_counts(n: int) -> list[int]:
+    """The CTA counts a grid over n columns may take: at most
+    ``MAX_GRID``, and none that leaves a CTA past the last column."""
+    return [g for g in range(1, min(MAX_GRID, n) + 1)
+            if (g - 1) * -(-n // g) < n]
+
+
+def _grid_layout(m: int, n: int, k: int, itemsize: int,
+                 wide: bool) -> PanelLayout:
+    """The layout of a panel that no cluster holds, over a count of CTAs
+    (at most ``MAX_GRID``, none past the last column).
 
     Below ``ROW_SPLIT_ROWS`` rows Q is split over the CTAs (layout 1)
     wherever the shares fit: beside residual slices that fit too, the
@@ -245,25 +266,24 @@ def _grid_layout(m: int, n: int, k: int, itemsize: int) -> PanelLayout:
     (2; 3 where a CTA's vectors do not fit beside its partial sums). Both
     take the fewest CTAs whose slices fit in shared memory, else the
     most."""
-    counts = [g for g in range(1, min(MAX_GRID, n) + 1)
-              if (g - 1) * -(-n // g) < n]
+    counts = grid_counts(n)
     code = 2
     if m < ROW_SPLIT_ROWS:
         fits = [x for g in counts
-                if (x := layout_at(m, n, k, itemsize, g, True, 1))
+                if (x := layout_at(m, n, k, itemsize, g, wide, 1))
                 and x.resid_in_smem]
         if fits:
             narrow = [x for x in fits
                       if x.width <= 32 and x.q_share <= _GRID_SHARE]
             return narrow[0] if narrow else fits[-1]
-        split = layout_at(m, n, k, itemsize, counts[-1], True, 1)
+        split = layout_at(m, n, k, itemsize, counts[-1], wide, 1)
         if split is not None:
             return split
         code = 4
 
     def at(g: int) -> PanelLayout:
-        return (layout_at(m, n, k, itemsize, g, True, code)
-                or layout_at(m, n, k, itemsize, g, True, 3))
+        return (layout_at(m, n, k, itemsize, g, wide, code)
+                or layout_at(m, n, k, itemsize, g, wide, 3))
 
     fits = [x for g in counts if (x := at(g)).resid_in_smem]
     return fits[0] if fits else at(counts[-1])
@@ -271,19 +291,14 @@ def _grid_layout(m: int, n: int, k: int, itemsize: int) -> PanelLayout:
 
 @functools.lru_cache(maxsize=1024)
 def panel_layout(m: int, n: int, k: int, itemsize: int = 4,
-                 wide: bool = False) -> PanelLayout | None:
+                 wide: bool = False) -> PanelLayout:
     """The layout of an (m, n) panel at k steps, ``itemsize`` bytes an
-    element, for K1 and K2 or, with ``wide``, for K3 and K4; None where
-    ``kernel_fits`` is false (never for K3 and K4).
+    element, for K1 and K2 or, with ``wide`` (f64 norms), for K3 and K4.
 
-    A cluster where one holds the panel (``_cluster_layout``); K3 and K4
-    run any other panel as one cooperative grid (``_grid_layout``)."""
-    if not kernel_fits(m, k, itemsize, wide):
-        return None
-    chosen = _cluster_layout(m, n, k, itemsize, wide)
-    if chosen is None:
-        chosen = _grid_layout(m, n, k, itemsize)
-    return chosen
+    A cluster where one holds the panel (``_cluster_layout``), any other
+    panel one cooperative grid (``_grid_layout``)."""
+    return (_cluster_layout(m, n, k, itemsize, wide)
+            or _grid_layout(m, n, k, itemsize, wide))
 
 
 def abs2(x: torch.Tensor) -> torch.Tensor:
@@ -431,8 +446,9 @@ def _entry(name: str):
         if name not in _libs:
             lib = ctypes.CDLL(str(build()[name][0]))
             fn = getattr(lib, name)
-            pointers, ints = (11, 10) if _WIDE_ENTRIES[name] else (7, 8)
-            fn.argtypes = [ctypes.c_void_p] * pointers + [
+            # K3 and K4 take a norm rule besides the layout
+            ints = 10 if _WIDE_ENTRIES[name] else 9
+            fn.argtypes = [ctypes.c_void_p] * 11 + [
                 ctypes.c_int] * ints + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _libs[name] = (lib, fn)
@@ -482,12 +498,6 @@ def _panel(wrapper, a: torch.Tensor, k: int, used: torch.Tensor | None,
                          f"conjugate: call resolve_conj())")
     if layout is None:
         layout = panel_layout(m, n, k, a.element_size(), wide)
-    if layout is None:
-        need = _basis_bytes(m, k, 1, MAX_THREADS, a.element_size())
-        raise ValueError(
-            f"{name}: a ({m}, {n}) panel at k={k} needs {need} bytes of "
-            f"shared memory, more than the {SMEM_LIMIT_BYTES} the kernel "
-            f"may request")
     nb = batch[0] if batch else 1
     if used is not None:
         if used.device != a.device:
@@ -497,24 +507,25 @@ def _panel(wrapper, a: torch.Tensor, k: int, used: torch.Tensor | None,
     q = torch.empty((*batch, m, k), dtype=a.dtype, device=a.device)
     r = torch.empty((*batch, k, n), dtype=a.dtype, device=a.device)
     piv = torch.empty((*batch, k), dtype=torch.int32, device=a.device)
+    norm_dtype = real_dtype(a.dtype) if wide else torch.float32
     resid = norm_ws = None
     if not layout.resid_in_smem:
         resid = torch.empty_like(a)
-        norm_ws = torch.empty((*batch, n), dtype=real_dtype(a.dtype)
-                              if wide else torch.float32, device=a.device)
+        norm_ws = torch.empty((*batch, n), dtype=norm_dtype, device=a.device)
     # (first panel, panels) of each launch: the grid runs one panel a
     # launch, as all of its CTAs must be resident at once
     launches = ([(p, 1) for p in range(nb)] if layout.grid else [(0, nb)])
     grid_ws = [None] * 4
     if layout.grid:
         # Q (with Q split over the CTAs: their parts of -Q Q^H v and v'),
-        # the candidates and their bests, and the CTAs' vectors where they
-        # do not fit in shared memory: (cluster, vec_stride(m, k))
+        # the candidates and their bests ((norm, index) pairs), and the
+        # CTAs' vectors where they do not fit in shared memory:
+        # (cluster, vec_stride(m, k))
         q_size = (layout.cluster + 1) * m if layout.q_share else k * m
         grid_ws = [torch.empty(q_size, dtype=a.dtype, device=a.device),
                    torch.empty((2, layout.cluster, m), dtype=a.dtype,
                                device=a.device),
-                   torch.empty((2, layout.cluster, 2), dtype=torch.float64,
+                   torch.empty((2, layout.cluster, 2), dtype=norm_dtype,
                                device=a.device),
                    None if layout.vectors_in_smem else torch.empty(
                        (layout.cluster, (3 * m + k + 1) // 2 * 2),
@@ -528,13 +539,11 @@ def _panel(wrapper, a: torch.Tensor, k: int, used: torch.Tensor | None,
         for first, count in launches:
             args = [ptr(x, first) for x in (a, used, q, r, piv, resid,
                                             norm_ws)]
+            args += [x.data_ptr() if x is not None else None
+                     for x in grid_ws]
+            tail = [int(layout.resid_in_smem), layout.code]
             if wide:
-                args += [x.data_ptr() if x is not None else None
-                         for x in grid_ws]
-                tail = [int(layout.resid_in_smem), layout.code,
-                        NORM_RULES[norms]]
-            else:
-                tail = [int(layout.resid_in_smem)]
+                tail.append(NORM_RULES[norms])
             err = fn(*args, count, m, n, k, layout.cluster, layout.threads,
                      *tail, layout.smem_bytes, stream)
             if err != 0:
@@ -555,7 +564,8 @@ def qrcp_panel(a: torch.Tensor, k: int, *, used: torch.Tensor | None = None):
     (..., k, n) in *original* column order, piv (..., k) int32 pivot
     columns in selection order. ``used`` (n,) or (B, n) marks columns that
     are never chosen. A CPU tensor runs the plain version; a CUDA tensor
-    launches the kernel (K1, one cluster of CTAs per panel, laid out by
+    launches the kernel (K1: one cluster of CTAs per panel, or one
+    cooperative grid a panel where Q does not fit a cluster, laid out by
     ``panel_layout``) or raises.
     """
     return _panel(qrcp_panel, a, k, used)

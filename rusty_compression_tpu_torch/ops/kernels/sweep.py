@@ -13,9 +13,9 @@ size), with ``chosen`` marking the size ``panel_layout`` picks; the first
 line carries the card's name and power limit and the ptxas reports. The
 layout rule's ``_SPLIT_ELEMENTS`` was set from this table. K3 and K4 (f64,
 c128) run each shape with its norm rule at every cluster that holds Q
-and the residual in shared memory, and at the layout the rule picks (the
-cooperative grid where no cluster holds the panel); where that grid
-splits Q over its CTAs, also at each count of ``--grids`` (by default the
+and the residual in shared memory; every kernel runs each shape at the
+layout the rule picks (the cooperative grid where no cluster holds the
+panel); where that grid splits Q over its CTAs, also at each count of ``--grids`` (by default the
 most CTAs the grid takes, ``MAX_GRID``), lowered to leave no CTA past the
 last column, where the slices still fit in shared memory.
 ``--quick`` runs one launch per layout and no timing: the first check of
@@ -43,11 +43,16 @@ SHAPES = {
         ((24, 16384), 16, False), ((16, 16384), 16, False),
         ((24, 2048), 16, False), ((37, 301), 29, True),
         ((8, 24, 2048), 16, False), ((136, 256), 128, True),
-        ((24, 32), 16, False), ((24, 16389), 16, True)],
+        ((24, 32), 16, False), ((24, 16389), 16, True),
+        # Q does not replicate in a CTA: the grid (layouts 1, 1, 2, 3)
+        ((1024, 1024), 64, False), ((264, 512), 256, True),
+        ((4096, 100), 100, False), ((20000, 40), 32, False)],
     "qrcp_panel_complex": [
         ((53, 8192), 43, False), ((43, 8192), 43, False),
         ((136, 256), 128, True), ((37, 301), 29, True),
-        ((8, 24, 2048), 16, False), ((53, 8191), 43, True)],
+        ((8, 24, 2048), 16, False), ((53, 8191), 43, True),
+        ((1024, 512), 64, False), ((2048, 100), 100, False),
+        ((12000, 40), 32, False)],
     # (shape, k, mask, norm rule): the 1e-8 ID cores of configs 2h and 4h
     # and of the high-accuracy ID example, config 2's f64 sketch
     "qrcp_panel_f64": [
@@ -171,20 +176,20 @@ def main(argv) -> int:
             q0, r0, piv0 = k1.qrcp_panel_plain(a, k, used,
                                                norms or "downdate")
             chosen = k1.panel_layout(m, n, k, a.element_size(), wide)
-            layouts = [k1.layout_at(m, n, k, a.element_size(), cluster,
-                                    wide)
-                       for cluster in k1.CLUSTER_SIZES]
-            if wide:   # clusters that hold the panel, and the rule's pick
-                layouts = [x for x in layouts if x and x.resid_in_smem]
-                layouts += [chosen] if chosen not in layouts else []
-                for count in grids if chosen.q_share else ():
-                    count = -(-n // -(-n // min(count, n)))
-                    other = k1.layout_at(m, n, k, a.element_size(), count,
-                                         True, 1)
-                    if other and other.resid_in_smem and other not in layouts:
-                        layouts.append(other)
+            layouts = [x for cluster in k1.CLUSTER_SIZES
+                       if (x := k1.layout_at(m, n, k, a.element_size(),
+                                             cluster, wide))]
+            if wide:   # K3, K4: only clusters that hold the panel
+                layouts = [x for x in layouts if x.resid_in_smem]
+            layouts += [chosen] if chosen not in layouts else []
+            for count in grids if chosen.q_share else ():
+                count = -(-n // -(-n // min(count, n)))
+                other = k1.layout_at(m, n, k, a.element_size(), count,
+                                     wide, 1)
+                if other and other.resid_in_smem and other not in layouts:
+                    layouts.append(other)
             for layout in layouts:
-                if layout is None or (clocks and layout != chosen):
+                if clocks and layout != chosen:
                     continue
                 run = lambda: k1._panel(  # noqa: E731
                     wrapper, a, k, used, layout, norms)

@@ -4,9 +4,10 @@ Modes:
 
 * ``"gs"`` — pivoted Gram–Schmidt QRCP, the port of the JAX ``_qrcp_gs``:
   the classical max-residual-norm pivot rule with norm downdating and one
-  reorthogonalization pass. For an f64 or c128 tensor on the card, one
-  hand-written CUDA kernel (K3, K4, ``ops/kernels/qrcp.py``), which takes
-  every shape; otherwise in plain PyTorch (``qrcp_panel_plain``).
+  reorthogonalization pass. On the card one hand-written CUDA kernel (K1
+  for f32, K2 for c64, K3 for f64, K4 for c128, ``ops/kernels/qrcp.py``),
+  which takes every shape; on the CPU in plain PyTorch
+  (``qrcp_panel_plain``).
 * ``"kernel"`` — the same pivot rule in one hand-written CUDA kernel
   (K1 for f32, K2 for c64); takes the place of the JAX package's
   ``"pallas"`` mode, and like it takes f32 and c64 only.
@@ -32,8 +33,8 @@ import torch
 from ..utils.dtypes import real_dtype
 from ..utils.precision import with_precision
 from ..utils.random_matrix import random_gaussian
-from .kernels.qrcp import (PANEL_KERNELS, WIDE_DTYPES, abs2, kernel_fits,
-                           qrcp_panel, qrcp_panel_complex, qrcp_panel_plain)
+from .kernels.qrcp import (PANEL_KERNELS, abs2, qrcp_panel,
+                           qrcp_panel_complex, qrcp_panel_plain)
 
 __all__ = ["pivoted_qr", "pivoted_lq"]
 
@@ -47,16 +48,11 @@ def _panel_kernel(dtype: torch.dtype):
     return PANEL_KERNELS.get(dtype, qrcp_panel)
 
 
-def _fits(m: int, k: int, dtype: torch.dtype) -> bool:
-    """``kernel_fits`` for ``dtype``'s kernel (always true for K3, K4)."""
-    return kernel_fits(m, k, dtype.itemsize, dtype in WIDE_DTYPES)
-
-
 def _gs(a: torch.Tensor, k: int):
-    """The ``"gs"`` mode, the JAX package's ``_qrcp_gs``: for an f64 / c128
-    tensor on the card K3 / K4 over the whole stack, else the plain loop.
-    Returns ``(q, r_orig, piv)`` with piv int64."""
-    if (a.device.type == "cuda" and a.dtype in WIDE_DTYPES and k > 0
+    """The ``"gs"`` mode, the JAX package's ``_qrcp_gs``: for a tensor on
+    the card its dtype's kernel (K1-K4) over the whole stack, else the
+    plain loop. Returns ``(q, r_orig, piv)`` with piv int64."""
+    if (a.device.type == "cuda" and a.dtype in PANEL_KERNELS and k > 0
             and a.numel() > 0):
         return _over_stack(_panel_kernel(a.dtype), a, k)
     return qrcp_panel_plain(a, k)
@@ -135,14 +131,13 @@ def _panel_qr(panel: torch.Tensor, method: str) -> torch.Tensor:
                        torch.linalg.qr(panel)[0])
 
 
-def _pivot_rule(pivot_kernel: str, dtype: torch.dtype, device: torch.device,
-                l: int, b: int) -> str:
-    """Resolve ``pivot_kernel``: ``"auto"`` is the kernel (K1-K4 by dtype)
-    on the card when it takes the (l, c) shortlist, else the plain rule."""
+def _pivot_rule(pivot_kernel: str, dtype: torch.dtype,
+                device: torch.device) -> str:
+    """Resolve ``pivot_kernel``: ``"auto"`` is the kernel (K1-K4 by dtype,
+    every shortlist) on the card, else the plain rule."""
     if pivot_kernel == "auto":
-        fits = (device.type == "cuda" and dtype in PANEL_KERNELS
-                and _fits(l, b, dtype))
-        return "kernel" if fits else "plain"
+        on_card = device.type == "cuda" and dtype in PANEL_KERNELS
+        return "kernel" if on_card else "plain"
     if pivot_kernel not in ("kernel", "plain"):
         raise ValueError(f"unknown pivot_kernel {pivot_kernel!r}: expected "
                          f"'kernel', 'plain' or 'auto'")
@@ -188,11 +183,10 @@ def _qrcp_blocked_from_gaussian(a: torch.Tensor, g: torch.Tensor, k: int,
     filled in place, panel by panel.
     """
     *batch, m, n = a.shape
-    l = g.shape[-2]
     if panel_method == "auto":
         # Householder off the TPU, as in the JAX package.
         panel_method = "house"
-    rule = _pivot_rule(pivot_kernel, a.dtype, a.device, l, block)
+    rule = _pivot_rule(pivot_kernel, a.dtype, a.device)
 
     def run_pivot_rule(s, used_mask, b):
         if rule == "plain":
@@ -276,17 +270,16 @@ def _working_set_fits(m: int, n: int, k: int, itemsize: int) -> bool:
 def _resolve_mode(mode: str, m: int, n: int, k: int, dtype: torch.dtype,
                   device: torch.device) -> str:
     """Resolve ``"auto"`` with the JAX package's thresholds: the fused
-    kernel where the JAX package picked Pallas (small rank or width, on
-    the accelerator, a working set under its 12 MiB bound and a Q that
-    fits the kernel), ``"gs"`` for f64/c128, the CPU or a larger working
-    set up to n = 512, the blocked RRQR beyond. A whole 2048^2 f32 block
-    at k = 16 (32.3 MiB) goes blocked, as in the JAX package. On the card
-    ``"gs"`` in f64/c128, and the blocked route's pivot rule on its
-    sketch, run K3/K4.
+    kernel exactly where the JAX package picks Pallas (small rank or
+    width, on the accelerator, a working set under its 12 MiB bound;
+    config 2's 1024^2 f32 matrix at k = 64 among them, which K1 runs as
+    one cooperative grid), ``"gs"`` for f64/c128, the CPU or a larger
+    working set up to n = 512, the blocked RRQR beyond. A whole 2048^2 f32
+    block at k = 16 (32.3 MiB) goes blocked, as in the JAX package. On the
+    card ``"gs"`` and the blocked route's pivot rule on its sketch run the
+    dtype's kernel (K1-K4).
 
-    In the small-rank branch the JAX package means the exact pivot rule
-    (its 12 MB fit rule covers a 1024^2 f32 matrix at k = 64, whose Q does
-    not fit this card's kernel). Where the port has to go blocked there,
+    Where a working set over 12 MiB goes blocked at small rank,
     ``pivoted_qr`` runs the pivot rule over the whole width of the sketch
     instead of a tournament shortlist (``pivot_candidates=None``): one
     panel, every column a candidate, as the exact rule has it.
@@ -299,8 +292,7 @@ def _resolve_mode(mode: str, m: int, n: int, k: int, dtype: torch.dtype,
         return mode
     if k <= 64 or n <= 128:
         if (dtype in _FUSED_DTYPES and device.type == "cuda"
-                and _working_set_fits(m, n, k, dtype.itemsize)
-                and _fits(m, k, dtype)):
+                and _working_set_fits(m, n, k, dtype.itemsize)):
             return "kernel"
         if n <= 512:
             return "gs"
@@ -329,7 +321,8 @@ def pivoted_qr(a: torch.Tensor, max_rank: int | None = None, *,
         Householder redo of unhealthy panels) or ``"auto"`` (Householder).
       pivot_kernel: blocked-mode pivot selection on the sketch —
         ``"kernel"`` (K1-K4 by dtype, pivots only), ``"plain"`` (the
-        PyTorch loop) or ``"auto"`` (the kernel on the card when it fits).
+        PyTorch loop) or ``"auto"`` (the kernel on the card, the loop on
+        the CPU).
       pivot_candidates: blocked-mode tournament shortlist factor (0 runs
         the pivot rule on all n columns; see
         ``_qrcp_blocked_from_gaussian``). ``None`` is 0 where ``"auto"``

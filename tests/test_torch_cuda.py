@@ -79,6 +79,9 @@ def test_rank_deficient_pivots_stay_permutation(k1):
 
 
 def test_kernel_rejects_what_it_cannot_take(k1):
+    """The wrong dtype, a transposed view and a mask on another device
+    raise; a (4096, 100) panel at k = 100, whose Q does not replicate in a
+    CTA (it raised before K1 had a grid), runs as one grid launch."""
     import torch
 
     a = _panel((24, 64))
@@ -86,8 +89,12 @@ def test_kernel_rejects_what_it_cannot_take(k1):
         k1.qrcp_panel(a.double(), 4)
     with pytest.raises(ValueError, match="contiguous"):
         k1.qrcp_panel(a.mT, 4)
-    with pytest.raises(ValueError, match="shared memory"):
-        k1.qrcp_panel(_panel((4096, 100)), 100)
+    tall = _panel((4096, 100))
+    before = k1.qrcp_panel.launch_count
+    got = k1.qrcp_panel(tall, 100)
+    torch.cuda.synchronize()
+    assert k1.qrcp_panel.launch_count == before + 1
+    _assert_matches_plain(k1, got, tall, 100, None)
     with pytest.raises(ValueError, match="device"):
         k1.qrcp_panel(a, 4, used=torch.zeros(64, dtype=torch.bool))
 
@@ -144,6 +151,10 @@ def test_complex_kernel_matches_plain(k1, shape, k, masked):
 
 
 def test_complex_kernel_rank_deficient_and_rejections(k1):
+    """Rank-deficient pivots stay a permutation; the wrong dtype and a
+    conjugate view raise; a (2048, 100) panel at k = 100, whose Q does not
+    replicate in a CTA (it raised before K2 had a grid), runs as one grid
+    launch."""
     import torch
 
     a = torch.zeros((6, 4), dtype=torch.complex64, device="cuda")
@@ -155,8 +166,12 @@ def test_complex_kernel_rank_deficient_and_rejections(k1):
         k1.qrcp_panel_complex(b.to(torch.complex128), 4)
     with pytest.raises(ValueError, match="contiguous"):
         k1.qrcp_panel_complex(b.mH, 4)
-    with pytest.raises(ValueError, match="shared memory"):
-        k1.qrcp_panel_complex(_complex_panel((2048, 100)), 100)
+    tall = _complex_panel((2048, 100))
+    before = k1.qrcp_panel_complex.launch_count
+    got = k1.qrcp_panel_complex(tall, 100)
+    torch.cuda.synchronize()
+    assert k1.qrcp_panel_complex.launch_count == before + 1
+    _assert_matches_plain(k1, got, tall, 100, None)
 
 
 def test_blocked_route_launches_the_panel_kernel(k1):
@@ -1083,3 +1098,95 @@ def test_wide_routes_launch_k3_k4(k1, dtype_name):
                                               pivot_kernel="plain",
                                               candidate_factor=0)
     assert torch.equal(piv_k, piv_p)
+
+
+# K1 and K2 where Q does not replicate in a CTA: one cooperative grid a
+# panel, (shape, k, mask, forced layout code or None) by kind. Layout 1
+# (Q split over the CTAs) at config 2's f32 panel, ragged and masked, and
+# a stack of two; 2 (Q in L2, from 2048 rows); 3 (the CTAs' vectors in
+# global memory too); 4 (warps over Q in L2), forced: the rule gives it
+# to no f32 panel and to c64 only at about 1900 rows and k > 1400.
+_GRID_CASES = {
+    "f32": [((1024, 1024), 64, False, None), ((1024, 1021), 64, True, None),
+            ((2, 640, 192), 96, False, None), ((4096, 100), 100, False, None),
+            ((20000, 40), 32, False, None), ((1000, 1000), 200, False, 4)],
+    "c64": [((1024, 512), 64, False, None), ((1024, 509), 64, True, None),
+            ((2, 1024, 512), 64, False, None), ((2048, 100), 100, False, None),
+            ((12000, 40), 32, False, None), ((1000, 1000), 200, False, 4)],
+}
+
+
+@pytest.mark.parametrize("kind,case", [
+    (kind, case) for kind, cases in _GRID_CASES.items() for case in cases])
+def test_grid_layouts_match_plain_and_repeat(k1, kind, case):
+    """K1 / K2 on the grid against the plain version: pivots exactly
+    equal, q and r within 1e-4, one launch a panel, two launches
+    bitwise."""
+    import torch
+
+    shape, k, masked, code = case
+    make, name, _, itemsize = _KERNELS[kind]
+    wrapper = getattr(k1, name)
+    a = make(shape, seed=9)
+    m, n = shape[-2:]
+    used = None
+    if masked:
+        used = torch.zeros(n, dtype=torch.bool, device="cuda")
+        used[::7] = True
+    layout = k1.panel_layout(m, n, k, itemsize)
+    if code is not None:
+        layout = k1.layout_at(m, n, k, itemsize, k1.grid_counts(n)[-1],
+                              False, code)
+    assert layout.grid and (code is None or layout.code == code)
+    before = wrapper.launch_count
+    got = k1._panel(wrapper, a, k, used, layout)
+    torch.cuda.synchronize()
+    panels = shape[0] if len(shape) == 3 else 1
+    assert wrapper.launch_count == before + panels
+    _assert_matches_plain(k1, got, a, k, used)
+    again = k1._panel(wrapper, a, k, used, layout)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("kind", ["f32", "c64"])
+def test_grid_routes_launch_k1_k2_never_the_plain_loop(k1, monkeypatch,
+                                                       kind):
+    """On the card ``auto`` at small rank within the JAX package's 12 MiB
+    (f32 (1024, 1024) k = 64, config 2's panel; c64 (1024, 512)), ``gs``
+    beyond the cluster domain ((4096, 100) / (2048, 100) at k = 100) and
+    the blocked route's pivot rule at block_size=256 (a (264, 512)
+    shortlist) each launch K1 / K2, with the plain loop's pivots, and
+    never run the plain loop or the plain pivot rule."""
+    import torch
+
+    from rusty_compression_tpu_torch.ops import pivoted_qr as pq
+
+    make, name, _, _ = _KERNELS[kind]
+    wrapper = getattr(k1, name)
+    auto_shape = (1024, 1024) if kind == "f32" else (1024, 512)
+    gs_shape = (4096, 100) if kind == "f32" else (2048, 100)
+    calls = []
+    for shape, k, mode in ((auto_shape, 64, "auto"), (gs_shape, 100, "gs")):
+        a = make(shape, seed=4)
+        _, _, piv0 = k1.qrcp_panel_plain(a, k)
+        calls.append((a, k, mode, piv0))
+    big = make((600, 800), seed=5)
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("a plain loop ran on the card")
+
+    monkeypatch.setattr(pq, "qrcp_panel_plain", no_plain)
+    monkeypatch.setattr(pq, "_select_block_pivots", no_plain)
+    for a, k, mode, piv0 in calls:
+        before = wrapper.launch_count
+        q, r, ind = pq.pivoted_qr(a, k, mode=mode)
+        torch.cuda.synchronize()
+        assert wrapper.launch_count == before + 1
+        assert torch.equal(ind[:k], piv0)
+        assert float(((q @ r)[:, :k] - a[:, ind[:k]]).abs().max()) <= 1e-4
+    before = wrapper.launch_count
+    q, r, ind = pq.pivoted_qr(big, 256, mode="blocked", block_size=256)
+    torch.cuda.synchronize()
+    assert wrapper.launch_count == before + 1
+    assert sorted(ind.tolist()) == list(range(800))
+    assert float(((q @ r)[:, :256] - big[:, ind[:256]]).abs().max()) <= 1e-3

@@ -102,14 +102,14 @@ def test_qr_tolerance_and_range_estimate_match_jax(port):
     ("float32", "cuda", 200, 100, 100, "kernel"),   # n <= 128
     ("float32", "cpu", 24, 300, 16, "gs"),
     ("float64", "cuda", 24, 300, 16, "gs"),         # the JAX dtype routing
-    ("float32", "cuda", 4096, 100, 100, "gs"),      # Q does not fit
+    ("float32", "cuda", 4096, 100, 100, "kernel"),  # K1 as a grid
     ("float32", "cpu", 24, 2048, 16, "blocked"),
     ("float32", "cuda", 300, 300, 200, "blocked"),
-    ("float32", "cuda", 16384, 16384, 16, "blocked"),  # Q does not fit, wide
+    ("float32", "cuda", 16384, 16384, 16, "blocked"),  # over 12 MiB, wide
     # c64 takes K2 on the card (the JAX package kept complex off its kernel)
     ("complex64", "cuda", 53, 8192, 43, "kernel"),
     ("complex64", "cuda", 43, 8192, 43, "kernel"),
-    ("complex64", "cuda", 2048, 100, 100, "gs"),       # Q at 8 bytes: no fit
+    ("complex64", "cuda", 2048, 100, 100, "kernel"),   # K2 as a grid
     ("complex64", "cpu", 53, 300, 43, "gs"),
     ("complex64", "cpu", 53, 8192, 43, "blocked"),
     ("complex128", "cuda", 53, 300, 43, "gs"),
@@ -162,4 +162,4 @@ def test_auto_keeps_the_kernel_on_held_panels(port, dtype, m, n_, k):
     if k <= 64 or n_ <= 128:
         assert _resolve_mode("auto", m, n_, k, dt, cuda) == "kernel"
     else:
-        assert _pivot_rule("auto", dt, cuda, m, k) == "kernel"
+        assert _pivot_rule("auto", dt, cuda) == "kernel"

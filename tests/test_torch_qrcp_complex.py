@@ -143,9 +143,13 @@ def test_wrapper_rejects_bad_arguments(port, shape, k, used_shape):
 
 def test_fit_rule_counts_eight_bytes(port):
     """Q (m, k), the q pairs, one candidate column, the projections and a
-    partial sum per thread: 4 bytes an element for K1, 8 for K2."""
+    partial sum per thread: 4 bytes an element for K1, 8 for K2. A panel
+    whose Q does not replicate in a CTA at 8 bytes runs K2 as a grid."""
     k1 = _kernels()
     assert (k1.panel_layout(53, 8192, 43, 8).smem_bytes
             == 8 * (53 * 43 + 2 * 53 + 2 * 16 * 53 + 43 + 1024))
     assert k1.kernel_fits(136, 128, 8) and k1.kernel_fits(53, 43, 8)
-    assert k1.kernel_fits(400, 136) and not k1.kernel_fits(400, 136, 8)
+    assert k1.kernel_fits(400, 136) and k1.kernel_fits(400, 136, 8)
+    assert k1._q_replicates(400, 136, 4) and not k1._q_replicates(400, 136, 8)
+    assert not k1.panel_layout(400, 1000, 136, 4).grid
+    assert k1.panel_layout(400, 1000, 136, 8).grid

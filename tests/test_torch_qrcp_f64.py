@@ -216,7 +216,7 @@ def test_every_core_gets_a_layout(port, m, n_, k, itemsize, grid, vectors):
     assert layout.cluster * layout.width >= n_
     assert (layout.cluster - 1) * layout.width < n_   # no CTA past the edge
     basis = k1._basis_bytes(m, k, layout.cluster, layout.threads, itemsize,
-                            True, layout.code)
+                            8, layout.code)
     slice_bytes = itemsize * (m * layout.width + layout.width) \
         + 8 * layout.width
     assert layout.smem_bytes == basis + (
@@ -313,5 +313,5 @@ def test_routes_pick_k3_k4_on_the_card(port, dtype, wrapper):
         assert torch.equal(x, y)
     # config 2 in f64 / c128: blocked, K3 / K4 on the (72, 1024) sketch
     assert pq._resolve_mode("auto", 1024, 1024, 64, dt, cuda) == "blocked"
-    assert pq._pivot_rule("auto", dt, cuda, 72, 64) == "kernel"
-    assert pq._pivot_rule("auto", dt, torch.device("cpu"), 72, 64) == "plain"
+    assert pq._pivot_rule("auto", dt, cuda) == "kernel"
+    assert pq._pivot_rule("auto", dt, torch.device("cpu")) == "plain"

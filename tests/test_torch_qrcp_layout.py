@@ -1,7 +1,8 @@
 """The layout rule of the pivoted-QR panel kernels (K1, K2), on the CPU.
 
 ``panel_layout(m, n, k, itemsize)`` decides from the shape alone how a
-panel lies on the card: the cluster size, the columns per CTA, the block
+panel lies on the card: the cluster size (or, where Q does not fit a
+cluster, the CTAs of one cooperative grid), the columns per CTA, the block
 size, whether the residual slice sits in shared memory, and the bytes of
 shared memory. Nothing here launches a kernel; the arithmetic is exact,
 so there is no tolerance. Also pins that ``interop.from_numpy`` puts its
@@ -48,12 +49,16 @@ def _slice_bytes(m, width, itemsize):
 @pytest.mark.parametrize("m,n,k,itemsize", GRID)
 def test_layout_rule(k1, m, n, k, itemsize):
     layout = k1.panel_layout(m, n, k, itemsize)
-    if not k1.kernel_fits(m, k, itemsize):
-        assert layout is None
-        assert all(k1.layout_at(m, n, k, itemsize, c) is None
-                   for c in k1.CLUSTER_SIZES)
+    assert k1.kernel_fits(m, k, itemsize)
+    # A panel whose Q does not replicate in a CTA runs as one cooperative
+    # grid (the grid rule's own tests are in test_torch_qrcp_grid.py).
+    assert layout.grid == (not k1._q_replicates(m, k, itemsize))
+    if layout.grid:
+        assert layout.cluster <= k1.MAX_GRID
+        assert (layout.cluster - 1) * layout.width < n <= (
+            layout.cluster * layout.width)
+        assert layout.smem_bytes <= k1.SMEM_LIMIT_BYTES
         return
-    assert layout is not None
     assert layout.cluster in (1, 2, 4, 8, 16)
     assert layout.smem_bytes <= k1.SMEM_LIMIT_BYTES
     assert layout.width == -(-n // layout.cluster)
@@ -93,9 +98,11 @@ def test_small_panel_takes_few_threads(k1):
     assert k1.panel_layout(24, 2048, 16, 4).threads < 1024
 
 
+# Since the grid layouts of K1 and K2 every panel fits; the last three
+# rows, whose Q does not replicate in a CTA, run as a grid.
 @pytest.mark.parametrize("m,k,itemsize,fits", [
     (136, 128, 4, True), (136, 128, 8, True), (400, 136, 4, True),
-    (400, 136, 8, False), (4096, 100, 4, False), (2048, 100, 8, False),
+    (400, 136, 8, True), (4096, 100, 4, True), (2048, 100, 8, True),
 ])
 def test_kernel_fits_is_where_a_layout_exists(k1, m, k, itemsize, fits):
     assert k1.kernel_fits(m, k, itemsize) == fits
