@@ -79,6 +79,7 @@ from .models.svd import SVD
 from .parallel.mesh import _sharded
 from .sampling import _range_finder_from_omega
 from .utils.errors import CompressionError
+from .utils.profiling import span
 from .utils.random_matrix import random_gaussian
 
 __all__ = [
@@ -201,15 +202,18 @@ def _fixed(a: torch.Tensor, generator: torch.Generator, l: int,
     width ``l`` up to ``min(m, n)`` columns, no host read. Returns Q."""
     m, n = a.shape[-2:]
     total = min(l * (1 + refine_rounds), m, n)
-    u, w = _round(a, generator, l, power_iters)
+    with span("rc.capture.round"):
+        u, w = _round(a, generator, l, power_iters)
     basis, r = u, a
     for _ in range(refine_rounds):
         room = total - basis.shape[-1]
         if room <= 0:
             break
-        r = r - u @ w
-        u, w = _round(r, generator, l, power_iters)
-        basis = torch.cat([basis, _deflate(basis, u)[..., :room]], dim=-1)
+        with span("rc.capture.round"):
+            r = r - u @ w
+            u, w = _round(r, generator, l, power_iters)
+            basis = torch.cat([basis, _deflate(basis, u)[..., :room]],
+                              dim=-1)
     return torch.linalg.qr(basis)[0]
 
 
@@ -242,18 +246,20 @@ def _grow(a: torch.Tensor, generator: torch.Generator, tol: float,
         if tall_guard and i and m > n and width + l >= n:
             q = torch.linalg.qr(a)[0]
             return q, [_read(hist[0, :i])[0]], [True]
-        u, w = _round(r, generator, l, power_iters)
-        new = _deflate(basis[..., :width], u) if width else u
-        grow = active[:, None, None]
-        basis[..., width:width + l] = torch.where(grow, new, 0.0)
-        r = torch.where(grow, r - u @ w, r)
-        res = torch.where(active, torch.linalg.matrix_norm(r) / safe, res)
-        hist[:, i] = torch.where(active, res, float("nan"))
-        live = live + active * l
-        active = active & (res > 0.5 * tol)
-        width += l
-        if not _read(active.any())[0]:
-            break
+        with span("rc.capture.round"):
+            u, w = _round(r, generator, l, power_iters)
+            new = _deflate(basis[..., :width], u) if width else u
+            grow = active[:, None, None]
+            basis[..., width:width + l] = torch.where(grow, new, 0.0)
+            r = torch.where(grow, r - u @ w, r)
+            res = torch.where(active, torch.linalg.matrix_norm(r) / safe,
+                              res)
+            hist[:, i] = torch.where(active, res, float("nan"))
+            live = live + active * l
+            active = active & (res > 0.5 * tol)
+            width += l
+            if not _read(active.any())[0]:
+                break
     keep = torch.arange(width, device=a.device) < live[:, None]
     q = torch.linalg.qr(basis[..., :width])[0] * keep[:, None, :]
     res_h, live_h, hist_h = _read(res, live, hist)
@@ -323,30 +329,33 @@ def _core_svd(b: torch.Tensor):
     runs its slower fallback after the failed sweeps (``chip_smoke.py``
     phase 23, ``PERF.md``)."""
     qt, rt = torch.linalg.qr(b.mH)
-    uh, s, wh = (x.to(b.device) for x in torch.linalg.svd(rt.mH.cpu()))
+    rt_h = rt.mH.cpu()  # the wait for the card stays outside the span
+    with span("rc.host_svd"):
+        uh, s, wh = (x.to(b.device) for x in torch.linalg.svd(rt_h))
     return uh, s, wh @ qt.mH
 
 
 def _finish(q: torch.Tensor, b: torch.Tensor, tol, rank, captured: list,
             histories: list, mark: bool, stack: bool) -> list:
     """SVD of the (B, L, n) cores, truncation per block, ``U = Q Uhat``."""
-    uh, s, vh = _core_svd(b)
-    s_host = np.asarray(_read(s)[0]).reshape(s.shape)
-    cuts = []
-    for i, (si, cap) in enumerate(zip(s_host, captured)):
-        kf, ok = _cut(si, tol, rank, cap)
-        if not ok and not mark:
-            raise CompressionError(
-                f"Could not compress{f' block {i}' if stack else ''} to "
-                f"relative tolerance {tol!r}")
-        norm = np.linalg.norm(si)
-        cuts.append((kf, ok, float(np.sqrt((si[kf:] ** 2).sum())
-                                   / (norm if norm > 0 else 1.0))))
-    kmax = max(kf for kf, _, _ in cuts)
-    u = q @ uh[..., :kmax]
-    return [RefinedSVD(u[i, :, :kf], s[i, :kf], vh[i, :kf, :],
-                       tuple(histories[i]), tol_ok=ok, opt_resid=opt)
-            for i, (kf, ok, opt) in enumerate(cuts)]
+    with span("rc.finish"):
+        uh, s, vh = _core_svd(b)
+        s_host = np.asarray(_read(s)[0]).reshape(s.shape)
+        cuts = []
+        for i, (si, cap) in enumerate(zip(s_host, captured)):
+            kf, ok = _cut(si, tol, rank, cap)
+            if not ok and not mark:
+                raise CompressionError(
+                    f"Could not compress{f' block {i}' if stack else ''} "
+                    f"to relative tolerance {tol!r}")
+            norm = np.linalg.norm(si)
+            cuts.append((kf, ok, float(np.sqrt((si[kf:] ** 2).sum())
+                                       / (norm if norm > 0 else 1.0))))
+        kmax = max(kf for kf, _, _ in cuts)
+        u = q @ uh[..., :kmax]
+        return [RefinedSVD(u[i, :, :kf], s[i, :kf], vh[i, :kf, :],
+                           tuple(histories[i]), tol_ok=ok, opt_resid=opt)
+                for i, (kf, ok, opt) in enumerate(cuts)]
 
 
 def _finish_core(q: torch.Tensor, b: torch.Tensor, tol, rank,
@@ -414,26 +423,27 @@ def refined_capture(a, generator: torch.Generator, rank: int | None = None,
     """
     a = _as_wide(a, generator)
     m, n = a.shape
-    if rank is None and round_rank is None:
-        if tol is None:
-            raise ValueError("need rank=, round_rank=, or tol=")
-        return _growth_one(a, generator, tol, oversample, power_iters)
-    k = int(round_rank if round_rank is not None else rank)
-    l = min(k + int(oversample), m, n)
-    if _saturated_tall(m, n, l, refine_rounds):
-        q = torch.linalg.qr(a)[0]
-        return q, q.mH @ a, (), True
-    q = _fixed(a, generator, l, power_iters, refine_rounds)
-    b = q.mH @ a
-    if verify and tol is not None:
-        rel = _read(torch.linalg.matrix_norm(a - q @ b)
-                    / torch.linalg.matrix_norm(a))[0]
-        if rel <= 2.5 * tol:
-            return q, b, (rel,), rel <= tol
-        q, b, history, captured = _growth_one(
-            a, _spawn(generator, 1)[0], tol, oversample, power_iters)
-        return q, b, (rel, *history), captured
-    return q, b, (), True
+    if rank is None and round_rank is None and tol is None:
+        raise ValueError("need rank=, round_rank=, or tol=")
+    with span("rc.capture"):
+        if rank is None and round_rank is None:
+            return _growth_one(a, generator, tol, oversample, power_iters)
+        k = int(round_rank if round_rank is not None else rank)
+        l = min(k + int(oversample), m, n)
+        if _saturated_tall(m, n, l, refine_rounds):
+            q = torch.linalg.qr(a)[0]
+            return q, q.mH @ a, (), True
+        q = _fixed(a, generator, l, power_iters, refine_rounds)
+        b = q.mH @ a
+        if verify and tol is not None:
+            rel = _read(torch.linalg.matrix_norm(a - q @ b)
+                        / torch.linalg.matrix_norm(a))[0]
+            if rel <= 2.5 * tol:
+                return q, b, (rel,), rel <= tol
+            q, b, history, captured = _growth_one(
+                a, _spawn(generator, 1)[0], tol, oversample, power_iters)
+            return q, b, (rel, *history), captured
+        return q, b, (), True
 
 
 def refined_rsvd_fused(a, generator: torch.Generator,
@@ -536,7 +546,7 @@ def refined_fused_batch_begin(blocks, generator: torch.Generator,
     a = _as_wide(blocks, generator)
     nb, m, n = a.shape
     captured, histories = [False] * nb, [()] * nb
-    with draws:
+    with draws, span("rc.capture"):
         if rank is None and round_rank is None:
             if tol is None:
                 raise ValueError("need rank=, round_rank=, or tol= (tol "
@@ -553,7 +563,8 @@ def refined_fused_batch_begin(blocks, generator: torch.Generator,
             else:
                 q, mode = _fixed(a, generator, l, power_iters,
                                  refine_rounds), "fixed"
-    return {"mode": mode, "q": q, "b": q.mH @ a, "captured": captured,
+        b = q.mH @ a
+    return {"mode": mode, "q": q, "b": b, "captured": captured,
             "histories": histories, "tol": tol, "rank": rank,
             "on_unreachable": on_unreachable}
 

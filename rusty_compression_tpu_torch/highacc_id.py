@@ -33,6 +33,7 @@ from .models.interp_decomp import ColumnID, RowID, TwoSidedID
 from .ops.kernels.qrcp import qrcp_panel_c128, qrcp_panel_f64
 from .ops.pivoted_qr import _full_permutation
 from .utils.errors import CompressionError
+from .utils.profiling import span
 
 __all__ = ["refined_column_id", "refined_row_id", "refined_two_sided_id"]
 
@@ -99,9 +100,11 @@ def _column_id_from_core(a: torch.Tensor, b: torch.Tensor, tol, rank,
                          growth_captured: bool) -> ColumnID:
     """Column ID of A from its core ``B = Q^H A``: the pivots and
     coefficients of B carry over to A because ``A ~= Q B``."""
-    rb, piv = _core_qrcp(b)
-    kf = _truncation_rank(torch.diagonal(rb), tol, rank, growth_captured)
-    z = _interp_coefficients(rb, piv, kf, a.shape[1])
+    with span("rc.core_pivot"):
+        rb, piv = _core_qrcp(b)
+        kf = _truncation_rank(torch.diagonal(rb), tol, rank,
+                              growth_captured)
+        z = _interp_coefficients(rb, piv, kf, a.shape[1])
     return ColumnID(a[:, piv[:kf]], z, piv)
 
 
@@ -117,7 +120,8 @@ def refined_column_id(a, generator: torch.Generator, rank: int | None = None,
     _, b, _, captured = refined_capture(a, generator, rank=rank, tol=tol,
                                         **capture_kwargs)
     growth = rank is None and capture_kwargs.get("round_rank") is None
-    return _column_id_from_core(a, b, tol, rank, captured and growth)
+    with span("rc.finish"):
+        return _column_id_from_core(a, b, tol, rank, captured and growth)
 
 
 def refined_row_id(a, generator: torch.Generator, rank: int | None = None,
@@ -136,15 +140,16 @@ def _host_row_id_of_columns(c: torch.Tensor):
     (the pivoted QR of ``C^H``), then ``X = [I; L21 L11^{-1}]``
     inverse-row-permuted. Returns ``(x, row_ind)``."""
     m, kf = c.shape
-    rc, pivr = _core_qrcp(c.mH)
-    x_perm = c.new_empty((m, kf))
-    x_perm[:kf] = torch.eye(kf, dtype=c.dtype, device=c.device)
-    if m > kf:
-        # X2 L11 = L21 with L11 = rc[:, :kf]^H lower triangular
-        x_perm[kf:] = torch.linalg.solve_triangular(
-            rc[:, :kf].mH, rc[:, kf:].mH, upper=False, left=False)
-    x = torch.empty_like(x_perm)
-    x[pivr] = x_perm
+    with span("rc.row_id"):
+        rc, pivr = _core_qrcp(c.mH)
+        x_perm = c.new_empty((m, kf))
+        x_perm[:kf] = torch.eye(kf, dtype=c.dtype, device=c.device)
+        if m > kf:
+            # X2 L11 = L21 with L11 = rc[:, :kf]^H lower triangular
+            x_perm[kf:] = torch.linalg.solve_triangular(
+                rc[:, :kf].mH, rc[:, kf:].mH, upper=False, left=False)
+        x = torch.empty_like(x_perm)
+        x[pivr] = x_perm
     return x, pivr
 
 
@@ -161,17 +166,19 @@ def refined_two_sided_id(a, generator: torch.Generator,
     if side == "col":
         cid = refined_column_id(a, generator, rank=rank, tol=tol,
                                 **capture_kwargs)
-        kf = cid.rank
-        x, pivr = _host_row_id_of_columns(cid.c)
-        skel = a[pivr[:kf][:, None], cid.col_ind[:kf]]
+        with span("rc.finish"):
+            kf = cid.rank
+            x, pivr = _host_row_id_of_columns(cid.c)
+            skel = a[pivr[:kf][:, None], cid.col_ind[:kf]]
         return TwoSidedID(c=x, x=skel, r=cid.z, row_ind=pivr,
                           col_ind=cid.col_ind)
     rid = refined_row_id(a, generator, rank=rank, tol=tol, **capture_kwargs)
-    kf = rid.rank
-    # the column ID of the skeleton rows R = A[I, :], exact: R has full
-    # row rank kf
-    rb, pivc = _core_qrcp(rid.r)
-    z = _interp_coefficients(rb, pivc, kf, a.shape[1])
-    skel = a[rid.row_ind[:kf][:, None], pivc[:kf]]
+    with span("rc.finish"):
+        kf = rid.rank
+        # the column ID of the skeleton rows R = A[I, :], exact: R has
+        # full row rank kf
+        rb, pivc = _core_qrcp(rid.r)
+        z = _interp_coefficients(rb, pivc, kf, a.shape[1])
+        skel = a[rid.row_ind[:kf][:, None], pivc[:kf]]
     return TwoSidedID(c=rid.x, x=skel, r=z, row_ind=rid.row_ind,
                       col_ind=pivc)

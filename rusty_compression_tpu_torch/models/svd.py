@@ -18,6 +18,7 @@ from ..ops.svd import compute_svd
 from ..utils.dtypes import herm
 from ..utils.errors import CompressionError
 from ..utils.precision import with_precision
+from ..utils.profiling import span
 from .compression import Adaptive, CompressionType, Rank
 
 __all__ = ["SVD"]
@@ -60,9 +61,10 @@ class SVD:
         takes the Gram-EVD small SVD, valid when the target tolerance is
         well above ``sqrt(eps)``."""
         op = as_linear_operator(op)
-        b = herm(op.conj_matmat(range_))
-        svd_b = cls.compute_from(b, method=method)
-        return cls(range_ @ svd_b.u, svd_b.s, svd_b.vt)
+        with span("rc.project_svd"):
+            b = herm(op.conj_matmat(range_))
+            svd_b = cls.compute_from(b, method=method)
+            return cls(range_ @ svd_b.u, svd_b.s, svd_b.vt)
 
     @with_precision
     def to_mat(self) -> torch.Tensor:

@@ -42,6 +42,7 @@ from .ops.svd import compute_svd
 from .ops.triangular import triangular_solve
 from .utils.dtypes import eps, herm, real_dtype
 from .utils.precision import matmul_precision, with_precision
+from .utils.profiling import span
 from .utils.random_matrix import random_gaussian
 
 __all__ = [
@@ -155,19 +156,21 @@ def _range_finder_from_omega(op: LinearOperator, omega: torch.Tensor,
         return (matmul_precision(sketch_precision) if sketch_precision
                 else contextlib.nullcontext())
 
-    with sketch_ctx():
-        y = op.matmat(omega)
-    mid = mid_ortho or ortho
-    for _ in range(power_iters):
-        # Mid-iteration re-orthonormalizations only stabilize the iterate:
-        # one svqb pass is enough there; the final basis gets the full one.
-        q = orthonormalize(y, mid, passes=1)
+    with span("rc.range_finder"):
         with sketch_ctx():
-            w_raw = op.conj_matmat(q)
-        w = orthonormalize(w_raw, mid, passes=1)
-        with sketch_ctx():
-            y = op.matmat(w)
-    return orthonormalize(y, ortho, passes=final_passes)
+            y = op.matmat(omega)
+        mid = mid_ortho or ortho
+        for _ in range(power_iters):
+            # Mid-iteration re-orthonormalizations only stabilize the
+            # iterate: one svqb pass is enough there; the final basis gets
+            # the full one.
+            q = orthonormalize(y, mid, passes=1)
+            with sketch_ctx():
+                w_raw = op.conj_matmat(q)
+            w = orthonormalize(w_raw, mid, passes=1)
+            with sketch_ctx():
+                y = op.matmat(w)
+        return orthonormalize(y, ortho, passes=final_passes)
 
 
 # ---------------------------------------------------------------------------

@@ -5,6 +5,7 @@
 * ``timeit_slope`` is the per-iteration time by a two-point slope, which
   cancels the fixed cost of each synchronisation.
 * ``trace`` wraps ``torch.profiler`` and writes a Chrome trace.
+* ``span`` names a stage of the pipelines on the profiler's clock.
 
 Not ported: ``scan_timeit``. It runs a function many times inside one
 compiled scan only to cancel the per-dispatch latency of a remote TPU
@@ -21,7 +22,7 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["sync", "timeit_slope", "trace"]
+__all__ = ["span", "sync", "timeit_slope", "trace"]
 
 
 def _tensors(tree):
@@ -80,11 +81,31 @@ def timeit_slope(fn, *args, n1: int = 5, n2: int = 45, trials: int = 5,
     return med
 
 
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named stage (``rc.capture``, ``rc.finish`` ...) on the profiler's
+    clock: while a profiler records, a host op of that name that encloses
+    the stage's ops and runtime calls in the trace; else one shared null
+    context, at the cost of a flag check. The span is a plain host op
+    (``_RecordFunctionFast``), not a ``record_function`` user annotation:
+    the profiler copies a user annotation onto the card's timeline, where
+    a reader that tells events apart by device takes it for a kernel. A
+    span launches nothing, reads nothing from the card and waits for
+    nothing."""
+    if torch.autograd._profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _OFF
+
+
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Profile the enclosed block with ``torch.profiler`` (CPU, and CUDA
     when a card is present) and write a Chrome trace,
-    ``log_dir/trace.json``, viewable in Perfetto."""
+    ``log_dir/trace.json``, viewable in Perfetto, where the ``span``s of
+    the enclosed calls enclose, on the host's thread, the ops that launched
+    their kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
