@@ -522,6 +522,63 @@ def phase_kernel(torch, k1, gen) -> KernelChecks:
     return checks
 
 
+#: K5's phase-2 shapes (batch, m, n) and types: cell 4's 64 sketches of
+#: the 16384^2 f32 stack, the f64 (8192, n) rounds of the tol 1e-8
+#: capture (the 128-wide one stays on cuSOLVER in the route, timed here
+#: beside it), one H-matrix bucket of the adaptive range finder.
+TSQR_CASES = [((64, 16384, 21), "float32"), ((1, 8192, 32), "float64"),
+              ((1, 8192, 64), "float64"), ((1, 8192, 128), "float64"),
+              ((400, 256, 8), "float64")]
+
+
+def phase_tsqr(torch, gen) -> dict:
+    """Phase 2 for K5: each case against the plain version (Q within 1e-4
+    in f32, 1e-10 in f64; ||Q^T Q - I|| and ||QR - Y|| / ||Y|| within
+    10 n u), two calls bitwise equal, one launch a call, and the times:
+    the wrapper's, the kernel's on a busy card, the plain version's, the
+    bound, and ``torch.linalg.qr``'s as ``library_ms``. Returns the first
+    case's row."""
+    from rusty_compression_tpu_torch.ops.kernels import tsqr
+    from rusty_compression_tpu_torch.ops.kernels.sweep import device_ms
+
+    rows = []
+    for shape, name in TSQR_CASES:
+        dtype = getattr(torch, name)
+        y = distinct_norm_panel(torch, gen, shape, dtype)
+        n = shape[-1]
+        u = float(torch.finfo(dtype).eps) / 2
+        before = tsqr.tsqr.launch_count
+        q, r = tsqr.tsqr(y, want_r=True)
+        q2, r2 = tsqr.tsqr(y, want_r=True)
+        torch.cuda.synchronize()
+        check(tsqr.tsqr.launch_count == before + 2,
+              f"tsqr launched other than once a call at {shape}")
+        check(torch.equal(q, q2) and torch.equal(r, r2),
+              f"tsqr at {shape}: two calls differ")
+        eye = torch.eye(n, dtype=dtype, device="cuda")
+        orth = float((q.mT @ q - eye).abs().max())
+        resid = float((q @ r - y).norm() / y.norm())
+        check(orth <= 10 * n * u and resid <= 10 * n * u,
+              f"tsqr at {shape}: orth {orth}, resid {resid}")
+        q0, _ = tsqr.tsqr_plain(y)
+        err = float((q - q0).abs().max())
+        check(err <= (1e-4 if name == "float32" else 1e-10),
+              f"tsqr at {shape}: |Q - Q_plain| {err}")
+        plan = tsqr.tsqr_plan(*shape, y.element_size())
+        row = {"ms": event_ms(lambda: tsqr.tsqr(y)),
+               "device_ms": device_ms(torch, lambda: tsqr.tsqr(y)),
+               "plain_ms": event_ms(lambda: tsqr.tsqr_plain(y), 3),
+               **tsqr.bound_ms(*shape, y.element_size()),
+               "library_ms": device_ms(torch, lambda: torch.linalg.qr(y))}
+        say("2-kernel", kernel="tsqr", shape=list(shape), dtype=name,
+            groups=plan.groups, rows=plan.rows, leaves=plan.leaves,
+            height=plan.height, orth=orth, resid=resid, max_abs_err=err,
+            repeat_bitwise=True,
+            route=tsqr.kernel_takes(y.device, dtype, *shape), **row)
+        rows.append({"max_abs_err": err, **row})
+    return rows[0]
+
+
 def rel_max(got, want) -> float:
     return float((got.cpu() - want).abs().max() / want.abs().max())
 
@@ -2461,6 +2518,7 @@ def main(argv) -> int:
     phase_build(k1)
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = phase_kernel(torch, k1, gen)
+    tsqr_row = phase_tsqr(torch, gen)
     phase_reference(torch, rt)
     phase_route(torch, torch.Generator(device="cuda").manual_seed(14))
     phase_route_gs(torch, k1)
@@ -2540,14 +2598,20 @@ def main(argv) -> int:
         ("25-examples", "qrcp_panel_complex", no_late,
          lambda: phase_examples(torch)),
     ]
+    from rusty_compression_tpu_torch.ops.kernels import tsqr
+
     launches = {name: 0 for name in KERNELS}
+    launches_tsqr = 0
     for phase, must, late, drive in paths:
         for name in KERNELS:
             getattr(k1, name).launch_count = 0
             getattr(k1, name).launched_shapes.clear()
+        tsqr.tsqr.launch_count = 0
         run = drive()
         torch.cuda.synchronize()
         counts = {name: getattr(k1, name).launch_count for name in KERNELS}
+        counts["tsqr"] = tsqr.tsqr.launch_count
+        launches_tsqr += counts["tsqr"]
         for name in (must,) if isinstance(must, str) else must or ():
             check(counts[name] > 0, f"phase {phase} launched no {name} "
                   f"kernel")
@@ -2586,7 +2650,10 @@ def main(argv) -> int:
         "plain_ms": kernels[name]["plain_ms"],
         "bound_ms": kernels[name]["bound_ms"],
         "bound_by": kernels[name]["bound_by"], "library_ms": None}
-        for name, replaces in KERNELS.items()]}))
+        for name, replaces in KERNELS.items()] + [{
+        "name": "tsqr", "route": "cuda", "source": csrc + "tsqr.cu",
+        "replaces": "torch.linalg.qr (cuSOLVER geqrf + orgqr)",
+        "launches": launches_tsqr, **tsqr_row}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

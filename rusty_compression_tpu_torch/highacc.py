@@ -76,6 +76,7 @@ import torch
 
 from .linop import DenseOperator, LinearOperator
 from .models.svd import SVD
+from .ops.orthogonalize import thin_q
 from .parallel.mesh import _sharded
 from .sampling import _range_finder_from_omega
 from .utils.errors import CompressionError
@@ -187,7 +188,7 @@ def _deflate(basis: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """An orthonormal basis of ``u`` with ``span(basis)`` removed twice:
     the new directions of a round."""
     d = u - basis @ (basis.mH @ u)
-    return torch.linalg.qr(d - basis @ (basis.mH @ d))[0]
+    return thin_q(d - basis @ (basis.mH @ d))
 
 
 def _saturated_tall(m: int, n: int, l: int, refine_rounds: int) -> bool:
@@ -214,7 +215,7 @@ def _fixed(a: torch.Tensor, generator: torch.Generator, l: int,
             u, w = _round(r, generator, l, power_iters)
             basis = torch.cat([basis, _deflate(basis, u)[..., :room]],
                               dim=-1)
-    return torch.linalg.qr(basis)[0]
+    return thin_q(basis)
 
 
 def _grow(a: torch.Tensor, generator: torch.Generator, tol: float,
@@ -244,7 +245,7 @@ def _grow(a: torch.Tensor, generator: torch.Generator, tol: float,
     r, width = a, 0
     for i, l in enumerate(widths):
         if tall_guard and i and m > n and width + l >= n:
-            q = torch.linalg.qr(a)[0]
+            q = thin_q(a)
             return q, [_read(hist[0, :i])[0]], [True]
         with span("rc.capture.round"):
             u, w = _round(r, generator, l, power_iters)
@@ -261,7 +262,7 @@ def _grow(a: torch.Tensor, generator: torch.Generator, tol: float,
             if not _read(active.any())[0]:
                 break
     keep = torch.arange(width, device=a.device) < live[:, None]
-    q = torch.linalg.qr(basis[..., :width])[0] * keep[:, None, :]
+    q = thin_q(basis[..., :width]) * keep[:, None, :]
     res_h, live_h, hist_h = _read(res, live, hist)
     hist_h = np.asarray(hist_h).reshape(nb, -1)
     histories = [tuple(float(h) for h in row if np.isfinite(h))
@@ -431,7 +432,7 @@ def refined_capture(a, generator: torch.Generator, rank: int | None = None,
         k = int(round_rank if round_rank is not None else rank)
         l = min(k + int(oversample), m, n)
         if _saturated_tall(m, n, l, refine_rounds):
-            q = torch.linalg.qr(a)[0]
+            q = thin_q(a)
             return q, q.mH @ a, (), True
         q = _fixed(a, generator, l, power_iters, refine_rounds)
         b = q.mH @ a
@@ -559,7 +560,7 @@ def refined_fused_batch_begin(blocks, generator: torch.Generator,
             k = int(round_rank if round_rank is not None else rank)
             l = min(k + int(oversample), m, n)
             if _saturated_tall(m, n, l, refine_rounds):
-                q, mode = torch.linalg.qr(a)[0], "direct"
+                q, mode = thin_q(a), "direct"
             else:
                 q, mode = _fixed(a, generator, l, power_iters,
                                  refine_rounds), "fixed"

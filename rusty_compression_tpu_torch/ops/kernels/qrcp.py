@@ -398,24 +398,25 @@ def _nvcc() -> str:
                               "bin", "nvcc"), shutil.which("nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("qrcp_panel: nvcc not found (set CUDA_HOME)")
+    raise RuntimeError("nvcc not found (set CUDA_HOME)")
 
 
-def build() -> dict[str, tuple[Path, str]]:
-    """Compile the kernels' sources for sm_90a into ``_build/``, one
-    ``nvcc`` per source and all started together, skipping a source whose
-    library is already there. Returns, by C entry point, the library's
+def compile_sources(entries: dict[str, Path],
+                    depends: bytes = b"") -> dict[str, tuple[Path, str]]:
+    """Compile the sources of ``entries`` (C entry point -> its source) for
+    sm_90a into ``_build/``, one ``nvcc`` per distinct source and all
+    started together, skipping a source whose library is already there
+    (named by a hash of the source, ``depends``, the headers it includes,
+    and the build's defines). Returns, by C entry point, the library's
     path and the compiler's report (registers, shared memory, spills;
     empty for a library that was found)."""
-    header = _HEADER.read_bytes()
-    out, running = {}, []
-    for spec in KERNELS.values():
-        entry, source = spec.entry, _CSRC / spec.source
-        digest = hashlib.sha256(source.read_bytes() + header + " ".join(
+    built, running = {}, []
+    for source in dict.fromkeys(entries.values()):
+        digest = hashlib.sha256(source.read_bytes() + depends + " ".join(
             _build_defines).encode()).hexdigest()[:12]
         lib = _BUILD_DIR / f"lib{source.stem}_{digest}.so"
         if lib.exists():
-            out[entry] = (lib, "")
+            built[source] = (lib, "")
             continue
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
@@ -424,20 +425,29 @@ def build() -> dict[str, tuple[Path, str]]:
                "-std=c++17", "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler",
                "-fPIC", *(f"-D{name}" for name in _build_defines),
                "-o", tmp, str(source)]
-        running.append((entry, lib, tmp, subprocess.Popen(
+        running.append((source, lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     failures = []
-    for entry, lib, tmp, proc in running:
+    for source, lib, tmp, proc in running:
         _, report = proc.communicate()
         if proc.returncode != 0:
             os.unlink(tmp)
             failures.append(f"{lib.name}:\n{report}")
             continue
         os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial file
-        out[entry] = (lib, report)
+        built[source] = (lib, report)
     if failures:
-        raise RuntimeError("qrcp_panel: nvcc failed:\n" + "\n".join(failures))
-    return out
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+    return {entry: built[source] for entry, source in entries.items()}
+
+
+def build() -> dict[str, tuple[Path, str]]:
+    """Compile K1-K4 (``compile_sources``: each source with the header it
+    includes). Returns, by C entry point, the library's path and the
+    compiler's report."""
+    return compile_sources({spec.entry: _CSRC / spec.source
+                            for spec in KERNELS.values()},
+                           _HEADER.read_bytes())
 
 
 def _entry(name: str):

@@ -8,11 +8,15 @@
   number, one small eigh per pass.
 * ``nsqb`` — ``Y (G + sigma I)^{-1/2}`` by the coupled Newton–Schulz
   iteration: GEMMs only, for mid-iteration re-orthonormalization.
-* ``qr`` — Householder (``torch.linalg.qr``).
+* ``qr`` — Householder, ``thin_q``: on the card K5 (``ops/kernels/tsqr.py``,
+  Householder QR with its reductions in a tree) for real stacks up to 128
+  columns and tall single panels, ``torch.linalg.qr`` for every other
+  input.
 
-``orthonormalize(method="auto")`` is Householder on both CPU and CUDA for
-now (the TPU picked svqb because its Householder was slow; the choice for
-the card waits for a measurement). The small Cholesky is
+``orthonormalize(method="auto")`` is Householder (``thin_q``) on both CPU
+and CUDA (the TPU picked svqb because its Householder was slow; CholeskyQR
+loses orthogonality past cond(Y) ~ eps^-1/2, about 3e3 in f32, which the
+card's f32 sketches of smooth kernels pass). The small Cholesky is
 ``torch.linalg.cholesky_ex``: the JAX package's pure-JAX Cholesky existed
 only because XLA's TPU Cholesky ran its matmuls at bf16. ``nsqb`` keeps its
 own copy of the f32 Newton–Schulz inverse square root of the JAX package's
@@ -24,14 +28,31 @@ All functions act on the last two axes and batch over leading ones.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..utils.dtypes import eps, herm
 from ..utils.precision import with_precision
+from .kernels import tsqr
 from .triangular import triangular_solve
 
 __all__ = ["cholesky_qr", "cholesky_qr2", "shifted_cholesky_qr3", "nsqb",
-           "svqb", "orthonormalize"]
+           "svqb", "orthonormalize", "thin_q"]
+
+
+def thin_q(y: torch.Tensor) -> torch.Tensor:
+    """The Q of the thin Householder QR of ``y`` (..., m, n): K5 where
+    ``tsqr.kernel_takes`` says so (a real f32 / f64 tensor on the card,
+    n <= min(m, 128), a stack or a panel of at least 80 rows a column; the
+    stack flattened to one call), ``torch.linalg.qr`` for any other input,
+    CPU tensors included. The choice reads only the device, the dtype and
+    the shape."""
+    *lead, m, n = y.shape
+    batch = math.prod(lead)
+    if tsqr.kernel_takes(y.device, y.dtype, batch, m, n):
+        return tsqr.tsqr(y.reshape(batch, m, n))[0].reshape(y.shape)
+    return torch.linalg.qr(y)[0]
 
 
 def _shift_magnitude(g: torch.Tensor, m: int) -> torch.Tensor:
@@ -151,12 +172,12 @@ def orthonormalize(y: torch.Tensor, method: str = "auto",
                    passes: int | None = None) -> torch.Tensor:
     """Orthonormal basis of the columns of tall-skinny ``y``.
 
-    ``method``: ``"auto"`` (Householder), ``"qr"``, ``"cholqr2"``,
+    ``method``: ``"auto"`` (Householder, ``thin_q``), ``"qr"``, ``"cholqr2"``,
     ``"scholqr3"``, ``"svqb"``, ``"nsqb"``. ``passes`` applies to svqb
     only.
     """
     if method in ("auto", "qr"):
-        return torch.linalg.qr(y, mode="reduced")[0]
+        return thin_q(y)
     if method == "cholqr2":
         return cholesky_qr2(y)[0]
     if method == "scholqr3":

@@ -1190,3 +1190,75 @@ def test_grid_routes_launch_k1_k2_never_the_plain_loop(k1, monkeypatch,
     assert wrapper.launch_count == before + 1
     assert sorted(ind.tolist()) == list(range(800))
     assert float(((q @ r)[:, :256] - big[:, ind[:256]]).abs().max()) <= 1e-3
+
+
+# K5, the tall-skinny QR kernel (ops/kernels/tsqr.py), against its plain
+# version on the card: the main path's shapes (the 64 f32 sketches of the
+# 16384^2 stack, the f64 (8192, n) rounds of the tol 1e-8 capture, an
+# H-matrix bucket) and small ones over every layout, ragged leaves, zero
+# columns. Limits: ||Q^T Q - I|| and ||QR - Y|| / ||Y|| within 10 n u, as
+# the CPU tests hold the plain version to Householder; Q and R within
+# 1e-4 (f32) and 1e-10 (f64) of the plain version's (the same reflectors,
+# summed in another order); two calls bitwise equal; one launch a call.
+_TSQR_CASES = [
+    ((64, 16384, 21), "float32"), ((1, 8192, 32), "float64"),
+    ((1, 8192, 64), "float64"), ((1, 8192, 128), "float64"),
+    ((400, 256, 8), "float64"), ((3, 300, 21), "float64"),
+    ((2, 517, 33), "float32"), ((1, 128, 128), "float64"),
+    ((4, 1000, 7), "float32"), ((2, 1000, 100), "float64"),
+]
+
+
+@pytest.mark.parametrize("shape,dtype_name", _TSQR_CASES)
+def test_tsqr_matches_plain_and_repeats(k1, shape, dtype_name):
+    import torch
+
+    from rusty_compression_tpu_torch.ops.kernels import tsqr
+
+    rng = np.random.default_rng(11)
+    y_np = rng.standard_normal(shape) * np.geomspace(1.0, 0.1, shape[-1])
+    if shape == (2, 517, 33):
+        y_np[..., [0, 16, 32]] = 0.0      # zero columns: identities
+    dtype = getattr(torch, dtype_name)
+    y = torch.tensor(y_np, dtype=dtype, device="cuda")
+    n = shape[-1]
+    u = float(torch.finfo(dtype).eps) / 2
+    before = tsqr.tsqr.launch_count
+    q, r = tsqr.tsqr(y, want_r=True)
+    q2, r2 = tsqr.tsqr(y, want_r=True)
+    torch.cuda.synchronize()
+    assert tsqr.tsqr.launch_count == before + 2
+    assert torch.equal(q, q2) and torch.equal(r, r2)
+    eye = torch.eye(n, dtype=dtype, device="cuda")
+    assert float((q.mT @ q - eye).abs().max()) <= 10 * n * u
+    assert float((q @ r - y).norm() / y.norm()) <= 10 * n * u
+    q0, r0 = tsqr.tsqr_plain(y)
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    assert float((q - q0).abs().max()) <= tol
+    assert float((r - r0).abs().max() / r0.abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype_name,shape,kernel", [
+    ("float64", (8192, 32), True),        # a round of the 1e-8 capture
+    ("float32", (8, 4096, 21), True),     # a stack: one call
+    ("float64", (8192, 128), False),      # a single wide panel: cuSOLVER
+    ("complex128", (4096, 16), False),
+])
+def test_thin_q_launches_k5_on_its_route(k1, dtype_name, shape, kernel):
+    """``orthonormalize`` on the card takes K5 (one launch, stack or not)
+    exactly where ``thin_q``'s route says, and its Q spans y either way."""
+    import torch
+
+    from rusty_compression_tpu_torch.ops.kernels import tsqr
+    from rusty_compression_tpu_torch.ops.orthogonalize import orthonormalize
+
+    rng = np.random.default_rng(12)
+    dtype = getattr(torch, dtype_name)
+    y = torch.tensor(rng.standard_normal(shape), device="cuda").to(dtype)
+    before = tsqr.tsqr.launch_count
+    q = orthonormalize(y)
+    torch.cuda.synchronize()
+    assert tsqr.tsqr.launch_count == before + int(kernel)
+    q0 = torch.linalg.qr(y)[0]
+    tol = 1e-4 if dtype in (torch.float32, torch.complex64) else 1e-10
+    assert float((q @ q.mH - q0 @ q0.mH).abs().max()) <= tol
