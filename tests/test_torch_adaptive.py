@@ -32,6 +32,7 @@ from test_torch_parity import (decade_block, jax_adaptive_omegas,  # noqa: F401
                                jax_adaptive_omegas_stack, low_rank, n, port,
                                projector, t)
 from torch_refs import Refs
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 BLK = 8
 SHAPE = (96, 64)

@@ -21,6 +21,7 @@ import pytest
 import rusty_compression_tpu as rc
 from test_torch_parity import (jax_gaussian, low_rank, n,  # noqa: F401
                                port, t)
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 DTYPES = [np.float32, np.float64, np.complex64, np.complex128]
 

@@ -18,6 +18,7 @@ import pytest
 from rusty_compression_tpu import cli as jcli
 from test_torch_highacc import decaying
 from test_torch_parity import port  # noqa: F401
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 SHAPES = [(40, 70), (90, 30), (64, 64), (100, 80)]
 

@@ -24,6 +24,7 @@ from test_torch_parity import (block_keys, feed_gaussians,  # noqa: F401
                                jax_gaussian, jax_nystrom_omegas, jax_sketch,
                                low_rank, n, port, t)
 from torch_refs import Refs
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 SHAPE = (80, 60)
 M, N = SHAPE

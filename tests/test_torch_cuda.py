@@ -16,6 +16,8 @@ orders).
 import numpy as np
 import pytest
 
+from torch_threads import one_thread  # noqa: F401 (autouse)
+
 pytestmark = pytest.mark.cuda
 
 

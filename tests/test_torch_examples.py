@@ -24,6 +24,7 @@ import pytest
 import rusty_compression_tpu as rc
 from test_torch_parity import port  # noqa: F401
 from torch_refs import Refs
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 refs = Refs(__file__)
 EXAMPLES = Path(__file__).resolve().parents[1] / "examples"

@@ -28,6 +28,7 @@ from rusty_compression_tpu.utils.doublefloat import (DF, df_from_f64,
 from rusty_compression_tpu.utils.errors import CompressionError as JaxError
 from test_torch_parity import n, port, t  # noqa: F401
 from torch_refs import Refs
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 TOL = 1e-8
 refs = Refs(__file__)
@@ -50,9 +51,11 @@ def unpack(d: dict, prefix: str = ""):
         bool(d[f"{prefix}tol_ok"]), None if opt is None else float(opt))
 
 
-def decaying(seed, m, n_, decay_rank=60, floor=1e-12, complex_=False):
+def decaying(seed, m, n_, decay_rank=60, floor=1e-12, complex_=False,
+             with_u=False):
     """``sigma_i = max(10^(-10 i / (decay_rank - 1)), floor)``: crosses 1e-8
-    at i = 0.8 (decay_rank - 1)."""
+    at i = 0.8 (decay_rank - 1). With ``with_u``, ``(a, u)``: also the
+    left singular vectors ``a`` was made from."""
     rng = np.random.default_rng(seed)
     k = min(m, n_)
     sig = np.maximum(10.0 ** (-10 * np.arange(k) / (decay_rank - 1)), floor)
@@ -63,7 +66,9 @@ def decaying(seed, m, n_, decay_rank=60, floor=1e-12, complex_=False):
             g = g + 1j * rng.standard_normal((rows, k))
         return np.linalg.qr(g)[0]
 
-    return (basis(m) * sig) @ basis(n_).conj().T
+    u = basis(m)
+    a = (u * sig) @ basis(n_).conj().T
+    return (a, u) if with_u else a
 
 
 def crossing(decay_rank):
@@ -77,8 +82,8 @@ def flat(seed, size):
     return q @ np.diag(np.linspace(1.0, 0.5, size)) @ q.T
 
 
-A_REAL = decaying(1, 192, 160)
-A_CPLX = decaying(2, 160, 128, complex_=True)
+A_REAL, U_REAL = decaying(1, 192, 160, with_u=True)
+A_CPLX, U_CPLX = decaying(2, 160, 128, complex_=True, with_u=True)
 MARK_STACK = np.stack([decaying(44, 96, 96, decay_rank=30), flat(43, 96)])
 
 
@@ -201,9 +206,22 @@ def test_from_numpy_carries_the_jax_result(port, jax_results):
 
 
 def core_of(a, width, seed=5):
-    """An exact orthonormal basis of ``a``'s dominant range and its core."""
+    """The orthonormal basis of a sketch of ``a`` under one power iteration,
+    as a capture makes it, and its core. Past the spectrum's 1e-5 (cubed to
+    the rounding level) its columns are noise, which moves at O(1) with the
+    BLAS's thread count; the core ``b`` moves only in its last bits."""
     g = np.random.default_rng(seed).standard_normal((a.shape[1], width))
     q = np.linalg.qr(a @ (a.conj().T @ (a @ g)))[0]
+    return q, q.conj().T @ a
+
+
+def exact_core(a, u, width, seed=5):
+    """An orthonormal basis of ``a``'s dominant range, its first ``width``
+    left singular vectors ``u`` turned by a random rotation, and its core:
+    unlike ``core_of``'s, the basis too moves only in its last bits with
+    the BLAS's thread count."""
+    g = np.random.default_rng(seed).standard_normal((width, width))
+    q = u[:, :width] @ np.linalg.qr(g)[0]
     return q, q.conj().T @ a
 
 
@@ -214,8 +232,8 @@ def core_of(a, width, seed=5):
 def test_finish_core_matches_jax(port, case, complex_):
     """One case runs the JAX package live, the others read its stored
     results."""
-    a = A_CPLX if complex_ else A_REAL
-    q, b = core_of(a, 70)
+    a, u = (A_CPLX, U_CPLX) if complex_ else (A_REAL, U_REAL)
+    q, b = exact_core(a, u, 70)
     tol, rank = case.get("tol"), case.get("rank")
     captured = case.get("captured", False)
     call = dict(tol=tol, rank=rank, history=(), captured=captured)

@@ -26,6 +26,7 @@ from test_torch_highacc import (A_CPLX, A_REAL, TOL, core_of,  # noqa: F401
                                 crossing, decaying, flat, gen)
 from test_torch_parity import n, port, t  # noqa: F401
 from torch_refs import Refs
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 refs = Refs(__file__)
 

@@ -17,6 +17,7 @@ import pytest
 import rusty_compression_tpu as rc
 from rusty_compression_tpu import io as jio
 from test_torch_parity import low_rank, n, port, t  # noqa: F401
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 KINDS = ["QR", "LQ", "SVD", "ColumnID", "RowID", "TwoSidedID"]
 

@@ -21,6 +21,7 @@ import pytest
 import rusty_compression_tpu as rc
 from test_torch_parity import jax_sketch, low_rank, n, port, t  # noqa: F401
 from torch_refs import Refs
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 refs = Refs(__file__)
 

@@ -16,6 +16,7 @@ import pytest
 import rusty_compression_tpu as rc
 from rusty_compression_tpu.models.qr import _tolerance_rank_device as jax_rank
 from test_torch_parity import low_rank, n, port, t  # noqa: F401
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def from_jax(obj):

@@ -38,6 +38,7 @@ from rusty_compression_tpu import parallel as jpar
 from test_torch_parity import (decade_block, jax_adaptive_omegas_stack,
                                jax_gaussian)
 from torch_refs import Refs
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 refs = Refs(__file__)
 WORLD = 4

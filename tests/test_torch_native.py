@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 from test_torch_parity import port  # noqa: F401
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

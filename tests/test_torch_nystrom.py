@@ -23,6 +23,7 @@ from rusty_compression_tpu.parallel.batch import (
 from test_torch_parity import (block_keys, jax_nystrom_omegas,  # noqa: F401
                                low_rank, n, port, t)
 from torch_refs import Refs
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 SHAPE = (120, 90)
 K = 20

@@ -22,16 +22,16 @@ import pytest
 
 import rusty_compression_tpu as rc
 
+from torch_threads import one_thread  # noqa: F401 (autouse)
+
 
 @pytest.fixture(scope="module")
 def port():
-    """``(torch, rusty_compression_tpu_torch)``, imported on first use.
-    One intra-op thread: the test workers already share the cores."""
+    """``(torch, rusty_compression_tpu_torch)``, imported on first use
+    (at one thread: ``one_thread``)."""
     import torch
 
     import rusty_compression_tpu_torch
-
-    torch.set_num_threads(1)
 
     return types.SimpleNamespace(torch=torch, rt=rusty_compression_tpu_torch)
 
@@ -231,6 +231,32 @@ def test_interop_from_numpy(port):
                                       np.asarray(getattr(jqr, name)))
     op = interop.from_numpy(a, device="cpu")
     assert isinstance(op, port.rt.DenseOperator) and op.shape == (30, 20)
+
+
+def test_one_thread_in_torch_and_the_blas(port):
+    """The test workers share the cores: while a port test module runs,
+    torch and every BLAS numpy or scipy loaded use one thread."""
+    from threadpoolctl import threadpool_info
+
+    assert port.torch.get_num_threads() == 1
+    pools = [p for p in threadpool_info() if p["user_api"] == "blas"]
+    assert pools and all(p["num_threads"] == 1 for p in pools)
+
+
+def test_every_port_test_file_takes_one_thread():
+    """Each ``test_torch_*.py`` imports the autouse ``one_thread``."""
+    import ast
+    from pathlib import Path
+
+    def takes_it(path):
+        return any(isinstance(node, ast.ImportFrom)
+                   and node.module == "torch_threads"
+                   and "one_thread" in [a.name for a in node.names]
+                   for node in ast.parse(path.read_text()).body)
+
+    files = sorted(Path(__file__).parent.glob("test_torch_*.py"))
+    assert len(files) > 20
+    assert [f.name for f in files if not takes_it(f)] == []
 
 
 # ---------------------------------------------------------------------------

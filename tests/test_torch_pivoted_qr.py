@@ -14,6 +14,7 @@ import pytest
 
 import rusty_compression_tpu as rc
 from test_torch_parity import low_rank, n, port, t  # noqa: F401 (fixture)
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 ATOL = {np.float32: 1e-5, np.float64: 1e-10}
 

@@ -17,6 +17,7 @@ import pytest
 
 import rusty_compression_tpu as rc
 from test_torch_parity import low_rank, n, port, t  # noqa: F401 (fixture)
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 DTYPES = [np.complex64, np.complex128]
 SHAPES = [(120, 80), (80, 120)]  # thin / thick

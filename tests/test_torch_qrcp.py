@@ -21,6 +21,7 @@ from rusty_compression_tpu.ops.pivoted_qr import _qrcp_gs as jax_qrcp_gs
 
 import rusty_compression_tpu as rc
 from test_torch_parity import low_rank, n, port, t  # noqa: F401 (fixture)
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 ATOL = {np.float32: 1e-5, np.float64: 1e-10}
 

@@ -18,6 +18,7 @@ from rusty_compression_tpu.ops.pallas.qrcp import (
 
 import rusty_compression_tpu as rc
 from test_torch_parity import low_rank, n, port, t  # noqa: F401 (fixture)
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 

@@ -26,6 +26,7 @@ from rusty_compression_tpu.ops.pivoted_qr import _qrcp_gs as jax_qrcp_gs
 
 from test_torch_highacc import A_CPLX, A_REAL, TOL, core_of
 from test_torch_parity import low_rank, n, port, t  # noqa: F401 (fixture)
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def _kernels():

@@ -20,6 +20,8 @@ import pytest
 
 import chip_smoke
 
+from torch_threads import one_thread  # noqa: F401 (autouse)
+
 # The layouts the cluster rule gave every K1/K2 case of chip_smoke.py's
 # phase 2 before K1 and K2 had a grid, (m, n, k, itemsize): (cluster,
 # width, threads, residual in shared memory, shared-memory bytes).

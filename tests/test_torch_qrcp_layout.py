@@ -13,6 +13,8 @@ import inspect
 
 import pytest
 
+from torch_threads import one_thread  # noqa: F401 (autouse)
+
 
 @pytest.fixture(scope="module")
 def k1():

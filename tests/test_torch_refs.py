@@ -17,6 +17,7 @@ import pytest
 from torch_refs import (EXAMPLE_FILES, INPUTS, SEP, STORE, VALUES, Refs,
                         example_hashes, source_hashes)
 from torch_refs.make_refs import FILES
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 STEMS = [f[:-3] for f in FILES]
 

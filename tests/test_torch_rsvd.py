@@ -20,6 +20,7 @@ import rusty_compression_tpu as rc
 from test_torch_parity import (jax_gaussian, low_rank, n, port,  # noqa: F401
                                projector, t)
 from torch_refs import Refs
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 RTOL = {np.float32: 1e-5, np.float64: 1e-10}
 SHAPE = (60, 40)

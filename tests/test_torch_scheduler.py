@@ -23,6 +23,7 @@ from rusty_compression_tpu.parallel import scheduler as jsc
 from test_torch_highacc import decaying
 from test_torch_parity import low_rank, n, port, t  # noqa: F401
 from torch_refs import Refs
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 refs = Refs(__file__)
 METHODS = ["rsvd", "nystrom", "column_id", "row_id", "two_sided_id",

@@ -15,6 +15,7 @@ import pytest
 import rusty_compression_tpu as rc
 from test_torch_parity import (assert_same_two_sided, jax_sketch,  # noqa: F401
                                low_rank, n, port, t)
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 ATOL = {np.float32: 1e-5, np.float64: 1e-10}
 SHAPE, RANK, WIDTH = (60, 40), 12, 20   # WIDTH = rank + oversample 8

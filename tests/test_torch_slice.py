@@ -23,6 +23,7 @@ import pytest
 
 from test_torch_parity import (assert_same_two_sided, block_keys,  # noqa: F401
                                jax_gaussian, jax_sketch, low_rank, n, port, t)
+from torch_threads import one_thread  # noqa: F401 (autouse)
 
 
 def test_entry_batched_rsvd_matches_jax(port):

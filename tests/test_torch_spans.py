@@ -20,6 +20,8 @@ from rusty_compression_tpu_torch import highacc, highacc_id
 from rusty_compression_tpu_torch.config import CompressionConfig, compress
 from rusty_compression_tpu_torch.utils import profiling
 
+from torch_threads import one_thread  # noqa: F401 (autouse)
+
 TOL = 1e-8
 
 

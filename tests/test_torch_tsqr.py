@@ -15,6 +15,8 @@ import types
 import numpy as np
 import pytest
 
+from torch_threads import one_thread  # noqa: F401 (autouse)
+
 
 @pytest.fixture(scope="module")
 def k5():
