@@ -2599,6 +2599,7 @@ def main(argv) -> int:
          lambda: phase_examples(torch)),
     ]
     from rusty_compression_tpu_torch.ops.kernels import tsqr
+    from rusty_compression_tpu_torch.ops.svd import compute_svd
 
     launches = {name: 0 for name in KERNELS}
     launches_tsqr = 0
@@ -2607,10 +2608,13 @@ def main(argv) -> int:
             getattr(k1, name).launch_count = 0
             getattr(k1, name).launched_shapes.clear()
         tsqr.tsqr.launch_count = 0
+        compute_svd.through_qr_count = 0
         run = drive()
         torch.cuda.synchronize()
         counts = {name: getattr(k1, name).launch_count for name in KERNELS}
         counts["tsqr"] = tsqr.tsqr.launch_count
+        # SVDs that took the QR-first route (K5's QR, one small SVD)
+        counts["svd_through_qr"] = compute_svd.through_qr_count
         launches_tsqr += counts["tsqr"]
         for name in (must,) if isinstance(must, str) else must or ():
             check(counts[name] > 0, f"phase {phase} launched no {name} "

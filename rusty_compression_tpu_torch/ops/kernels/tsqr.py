@@ -428,7 +428,8 @@ def tsqr(y: torch.Tensor, *, want_r: bool = False):
     if y.device.type != "cuda":
         raise ValueError(f"tsqr runs on cpu or cuda, got {y.device}")
     if batch == 0:
-        return torch.empty_like(y), None
+        return torch.empty_like(y), (y.new_empty((*lead, n, n)) if want_r
+                                     else None)
     y = y.contiguous()
     fn = _entry(ENTRIES[y.dtype])
     q = torch.empty_like(y)

@@ -1264,3 +1264,113 @@ def test_thin_q_launches_k5_on_its_route(k1, dtype_name, shape, kernel):
     q0 = torch.linalg.qr(y)[0]
     tol = 1e-4 if dtype in (torch.float32, torch.complex64) else 1e-10
     assert float((q @ q.mH - q0 @ q0.mH).abs().max()) <= tol
+
+
+# compute_svd's QR-first route (ops/svd.py): a real card stack whose long
+# side is at least twice its short one and whose tall orientation K5 takes
+# goes through K5's QR and one batched small SVD; every other input keeps
+# torch.linalg.svd. Limits as the CPU tests' (tests/test_torch_rsvd.py).
+def _separated(shape, dtype, seed):
+    """A (..., m, n) card tensor whose singular values fall from 1 to 1e-3."""
+    import torch
+
+    *lead, m, n = shape
+    k = min(m, n)
+    rng = np.random.default_rng(seed)
+    u = np.linalg.qr(rng.standard_normal((*lead, m, k)))[0]
+    v = np.linalg.qr(rng.standard_normal((*lead, n, k)))[0]
+    a = (u * np.geomspace(1.0, 1e-3, k)) @ np.swapaxes(v, -1, -2)
+    return torch.tensor(a, device="cuda").to(getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("shape,dtype_name,rank,routed", [
+    ((8, 21, 4096), "float32", 21, True),     # wide cores, a stack
+    ((1, 32, 8192), "float64", 32, True),     # one wide core
+    ((8, 21, 4096), "float32", 14, True),     # zero rows, as padded
+    ((8, 21, 4096), "complex64", 21, False),  # complex: cuSOLVER
+])
+def test_compute_svd_through_qr_on_its_route(k1, shape, dtype_name, rank,
+                                             routed):
+    """``compute_svd`` raises ``through_qr_count`` and K5's launch count by
+    one exactly where the route says, and agrees with ``torch.linalg.svd``:
+    singular values to 1e-5 (f32) / 1e-12 (f64) of the largest, the
+    factors back to a, orthonormal, the same subspaces up to the rank (the
+    rows past ``rank`` zero, as the adaptive path pads a core)."""
+    import torch
+
+    from rusty_compression_tpu_torch.ops import svd as ops_svd
+    from rusty_compression_tpu_torch.ops.kernels import tsqr
+
+    a = torch.zeros(shape, dtype=getattr(torch, dtype_name), device="cuda")
+    a[..., :rank, :] = _separated((*shape[:-2], rank, shape[-1]),
+                                  dtype_name, 13)
+    counts = (ops_svd.compute_svd.through_qr_count, tsqr.tsqr.launch_count)
+    u, s, vt = ops_svd.compute_svd(a)
+    torch.cuda.synchronize()
+    assert (ops_svd.compute_svd.through_qr_count,
+            tsqr.tsqr.launch_count) == tuple(c + int(routed) for c in counts)
+    u0, s0, vt0 = torch.linalg.svd(a, full_matrices=False)
+    k = min(shape[-2:])
+    single = a.real.dtype == torch.float32
+    assert float((s - s0).abs().max()) <= (1e-5 if single else 1e-12)
+    tol = 10 * k * float(torch.finfo(a.real.dtype).eps)
+    assert float((u * s[..., None, :].to(a.dtype) @ vt - a).norm()
+                 / a.norm()) <= tol
+    eye = torch.eye(k, dtype=a.dtype, device="cuda")
+    assert float((u.mH @ u - eye).abs().max()) <= tol
+    assert float((vt @ vt.mH - eye).abs().max()) <= tol
+    for r in (rank // 2, rank):
+        for got, want in ((u[..., :r], u0[..., :r]),
+                          (vt[..., :r, :].mH, vt0[..., :r, :].mH)):
+            assert float((got @ got.mH - want @ want.mH).abs().max()) <= (
+                1e-4 if single else 1e-9)
+
+
+def test_compute_svd_through_qr_of_an_empty_stack(k1):
+    """An empty stack takes the route (K5's rule reads the panels' shape)
+    and gives empty factors of the library's shapes."""
+    import torch
+
+    from rusty_compression_tpu_torch.ops.svd import compute_svd
+
+    a = torch.empty((0, 21, 4096), device="cuda")
+    got = compute_svd(a)
+    want = torch.linalg.svd(a, full_matrices=False)
+    assert [x.shape for x in got] == [x.shape for x in want]
+
+
+def test_rank16_rsvd_of_a_laplace_stack_through_qr(k1):
+    """The front door's rank-16 rSVD of eight 4096^2 f32 Laplace blocks (the
+    benchmark's stack cell, smaller) takes the route once, and its worst
+    block reads resid, orth and proj within that cell's limits (8e-5, 1e-4,
+    6e-5), every number formed in float64."""
+    import math
+
+    import torch
+
+    import rusty_compression_tpu_torch as rt
+    from rusty_compression_tpu_torch.ops import svd as ops_svd
+
+    gen = torch.Generator(device="cuda").manual_seed(2024)
+    x = (torch.rand((8, 4096, 3), generator=gen, device="cuda",
+                    dtype=torch.float64) - 0.5)
+    y = (torch.rand((8, 4096, 3), generator=gen, device="cuda",
+                    dtype=torch.float64) - 0.5
+         + torch.tensor([3.0, 0.0, 0.0], device="cuda", dtype=torch.float64))
+    d = torch.cdist(x, y)
+    stack = (1.0 / (4.0 * math.pi * d)).float()
+    before = ops_svd.compute_svd.through_qr_count
+    out = rt.compress(stack, gen, rt.CompressionConfig.RANK(16))
+    torch.cuda.synchronize()
+    assert ops_svd.compute_svd.through_qr_count == before + 1
+    a = stack.double()
+    u, s, vt = out.u.double(), out.s.double(), out.vt.double()
+    norm = torch.linalg.matrix_norm(a)
+    resid = torch.linalg.matrix_norm(a - u * s[:, None, :] @ vt) / norm
+    proj = torch.linalg.matrix_norm(u.mT @ a - s[..., None] * vt) / norm
+    eye = torch.eye(16, dtype=torch.float64, device="cuda")
+    orth = max(float((u.mT @ u - eye).abs().max()),
+               float((vt @ vt.mT - eye).abs().max()))
+    assert float(resid.max()) <= 8e-5
+    assert orth <= 1e-4
+    assert float(proj.max()) <= 6e-5

@@ -19,6 +19,7 @@ import pytest
 import rusty_compression_tpu as rc
 from test_torch_parity import (jax_gaussian, low_rank, n, port,  # noqa: F401
                                projector, t)
+from test_torch_tsqr import _Card
 from torch_refs import Refs
 from torch_threads import one_thread  # noqa: F401 (autouse)
 
@@ -298,3 +299,107 @@ def test_hilbert_defaults_to_the_card():
     from rusty_compression_tpu_torch.utils import kernel_matrices as km
 
     assert inspect.signature(km.hilbert).parameters["device"].default == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# compute_svd's QR-first route (``ops/svd._svd_through_qr``): on the card K5
+# takes the QR of the long side; on the CPU the helper runs K5's plain
+# version, held here against torch.linalg.svd
+# ---------------------------------------------------------------------------
+
+
+def _core(shape, dtype, kind):
+    """A (..., m, n) core: a spectrum falling from 1 to 1e-3 (well separated
+    singular values), as the adaptive path pads it (the last third of the
+    short side's rows or columns zero), or all zero; and its rank."""
+    *lead, m, n = shape
+    k = min(m, n)
+    a = np.zeros(shape, dtype)
+    rank = {"zero": 0, "padded": k - k // 3}.get(kind, k)
+    if rank:
+        rows, cols = (rank, n) if m < n else (m, rank)
+        a[..., :rows, :cols] = np.stack([
+            low_rank(40 + i, (rows, cols), 1e-3, dtype)
+            for i in range(int(np.prod(lead)))]).reshape(*lead, rows, cols)
+    return a, rank
+
+
+@pytest.mark.parametrize("shape,dtype,kind", [
+    ((12, 1024), np.float32, "full"),          # wide, one core
+    ((3, 12, 1024), np.float32, "full"),       # wide, a stack
+    ((12, 1024), np.float64, "full"),
+    ((3, 12, 1024), np.float64, "full"),
+    ((1024, 12), np.float32, "full"),          # tall
+    ((3, 1024, 12), np.float32, "full"),
+    ((1024, 12), np.float64, "full"),
+    ((3, 1024, 12), np.float64, "full"),
+    ((3, 12, 1024), np.float32, "padded"),     # zero rows, as padded
+    ((3, 12, 1024), np.float64, "padded"),
+    ((3, 1024, 12), np.float64, "padded"),     # zero columns
+    ((12, 1024), np.float64, "zero"),          # an all-zero core
+])
+def test_svd_through_qr_matches_the_library(port, shape, dtype, kind):
+    """``_svd_through_qr`` against ``torch.linalg.svd``: the singular values
+    to rtol 1e-12 (f64) / 1e-5 (f32) of the largest, ``u diag(s) vt`` back
+    to ``a``, ``u`` and ``vt`` orthonormal (past the rank, rows of the QR's
+    orthonormal Q turned by the small SVD's), and the leading half and the whole of the rank's left and right singular
+    subspaces the library's (by projector)."""
+    torch = port.torch
+    from rusty_compression_tpu_torch.ops.svd import _svd_through_qr
+
+    a_np, rank = _core(shape, dtype, kind)
+    a = t(a_np)
+    u, s, vt = _svd_through_qr(a)
+    u0, s0, vt0 = torch.linalg.svd(a, full_matrices=False)
+    k = min(shape[-2:])
+    assert u.shape == u0.shape and s.shape == s0.shape
+    assert vt.shape == vt0.shape
+    rtol = 1e-12 if dtype == np.float64 else 1e-5
+    scale = float(s0.max()) if rank else 0.0
+    assert float((s - s0).abs().max()) <= rtol * scale
+    tol = 10 * k * float(torch.finfo(a.dtype).eps)
+    assert float((u * s[..., None, :] @ vt - a).norm()) <= tol * float(
+        a.norm())
+    eye = torch.eye(k, dtype=a.dtype)
+    assert float((u.mT @ u - eye).abs().max()) <= tol
+    assert float((vt @ vt.mT - eye).abs().max()) <= tol
+    for r in {rank // 2, rank} - {0}:
+        for got, want in ((u[..., :r], u0[..., :r]),
+                          (vt[..., :r, :].mT, vt0[..., :r, :].mT)):
+            assert float((got @ got.mT - want @ want.mT).abs().max()) <= (
+                10 * RTOL[dtype])
+
+
+@pytest.mark.parametrize("device,dtype,shape,takes", [
+    ("cuda", "float32", (64, 21, 16384), True),  # cell 4's cores
+    ("cuda", "float32", (3, 12, 1024), True),    # a wide stack
+    ("cuda", "float64", (3, 1024, 12), True),    # a tall stack
+    ("cuda", "float64", (1, 32, 8192), True),    # one core, 256 a column
+    ("cuda", "float64", (32, 8192), True),
+    ("cpu", "float32", (3, 12, 1024), False),    # a CPU tensor
+    ("cuda", "complex64", (3, 12, 1024), False),  # complex
+    ("cuda", "float64", (2, 130, 1024), False),  # k > 128
+    ("cuda", "float32", (3, 20, 20), False),     # a square stack
+    ("cuda", "float32", (3, 20, 39), False),     # long side < 2 k
+    ("cuda", "float64", (64, 1024), False),      # K5 refuses: one core,
+])                                               # 16 rows a column
+def test_svd_through_qr_route(port, device, dtype, shape, takes):
+    """``compute_svd(method="direct")`` takes the QR-first route exactly for
+    a real f32 / f64 card tensor whose tall orientation K5 takes and whose
+    long side is at least twice its short one (a stand-in tensor); every
+    input on the CPU, and every other input, gets ``torch.linalg.svd``'s
+    factors bit for bit and leaves the counter as it was."""
+    torch = port.torch
+    from rusty_compression_tpu_torch.ops import svd as ops_svd
+
+    assert ops_svd._through_qr_takes(_Card(
+        device=torch.device(device), dtype=getattr(torch, dtype),
+        shape=shape)) == takes
+    small = shape if np.prod(shape) <= 2 ** 18 else (2, *shape[-2:-1], 64)
+    rng = np.random.default_rng(41)
+    a = torch.tensor(rng.standard_normal(small)).to(getattr(torch, dtype))
+    before = ops_svd.compute_svd.through_qr_count
+    got = port.rt.compute_svd(a)
+    want = torch.linalg.svd(a, full_matrices=False)
+    assert ops_svd.compute_svd.through_qr_count == before
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
