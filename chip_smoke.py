@@ -6,10 +6,12 @@ Phases (each ends with ``torch.cuda.synchronize()``; any failed check
 raises, and the script exits non-zero without its result line):
 
 0. Card: name and power limit from ``nvidia-smi``; TF32 turned off.
-1. Build: compiles K1 (``csrc/qrcp.cu``, f32), K2 (``csrc/qrcp_c64.cu``,
-   c64), K3 (``csrc/qrcp_f64.cu``, f64) and K4 (``csrc/qrcp_c128.cu``,
-   c128) from this checkout, one ``nvcc`` each, started together; prints
-   the four ``ptxas`` reports.
+1. Build: compiles every source of ``ops.kernels.library.ENTRY_POINTS``
+   from this checkout, K1 (``csrc/qrcp.cu``, f32), K2
+   (``csrc/qrcp_c64.cu``, c64), K3 (``csrc/qrcp_f64.cu``, f64), K4
+   (``csrc/qrcp_c128.cu``, c128) and K5 (``csrc/tsqr.cu``, f32 and f64),
+   one ``nvcc`` each, started together; loads every entry point and
+   prints the five ``ptxas`` reports.
 2. K1 and K2 against their plain version on the card at the main paths'
    panel shapes and at ragged and masked ones (a width that is no
    multiple of the cluster's warps, fewer columns than 32 a CTA, a mask
@@ -211,8 +213,8 @@ import subprocess
 import sys
 import time
 
-#: What each kernel replaces, by wrapper name; entry point, source, dtype
-#: and tolerance come from ``ops.kernels.qrcp.KERNELS``.
+#: What each kernel replaces, by wrapper name; entry point, dtype and
+#: tolerance come from ``ops.kernels.qrcp.KERNELS``.
 KERNELS = {
     "qrcp_panel": "rusty_compression_tpu/ops/pallas/qrcp.py:41",
     "qrcp_panel_complex": "rusty_compression_tpu/ops/pallas/qrcp.py:150",
@@ -310,15 +312,20 @@ def phase_card(torch) -> str:
     return card
 
 
-def phase_build(k1) -> None:
+def phase_build() -> None:
+    from rusty_compression_tpu_torch.ops.kernels import library
+
     t0 = time.perf_counter()
-    built = k1.build()
+    built = library.build()
     seconds = time.perf_counter() - t0
-    for name in KERNELS:
-        entry = k1.KERNELS[name].entry
-        path, report = built[entry]
-        k1._entry(entry)
-        say("1-build", kernel=name, seconds_all=seconds, library=path.name,
+    by_source: dict[str, list[str]] = {}
+    for entry, (source, _) in library.ENTRY_POINTS.items():
+        by_source.setdefault(source, []).append(entry)
+        library.entry(entry)
+    for source, entries in by_source.items():
+        path, report = built[entries[0]]
+        say("1-build", source=source, entries=entries, seconds_all=seconds,
+            library=path.name,
             ptxas=[line.strip() for line in report.splitlines()
                    if "registers" in line or "spill" in line])
 
@@ -2515,7 +2522,7 @@ def main(argv) -> int:
     from rusty_compression_tpu_torch.ops.kernels import qrcp as k1
 
     card = phase_card(torch)
-    phase_build(k1)
+    phase_build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = phase_kernel(torch, k1, gen)
     tsqr_row = phase_tsqr(torch, gen)
@@ -2644,10 +2651,12 @@ def main(argv) -> int:
         dist.destroy_process_group()
 
     print(card)
+    from rusty_compression_tpu_torch.ops.kernels.library import ENTRY_POINTS
+
     csrc = "rusty_compression_tpu_torch/csrc/"
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
-        "source": csrc + k1.KERNELS[name].source,
+        "source": csrc + ENTRY_POINTS[k1.KERNELS[name].entry][0],
         "replaces": replaces, "launches": launches[name],
         "max_abs_err": kernels[name]["max_abs_err"],
         "ms": kernels[name]["ms"], "device_ms": kernels[name]["device_ms"],

@@ -6,9 +6,9 @@ submission-order gather) has a C++ twin of the Python planner in
 ``parallel.scheduler``; both give the same plans. This module compiles the
 repository's ``native/rc_native.cpp`` as it is, with the flags of
 ``native/Makefile`` (``g++ -O3 -std=c++17 -fPIC -shared``), into this
-package's ``_build/`` under a name that carries the hash of the source,
-and loads it. It never writes into ``native/``: that directory holds the
-JAX package's own build. Without a compiler or without the source (an
+package's ``_build/`` (``ops.kernels.library.compile_sources``), and loads
+it. It never writes into ``native/``: that directory holds the JAX
+package's own build. Without a compiler or without the source (an
 installed package) ``available()`` is False, ``plan`` and ``chunk_batch``
 return None, and the caller takes the Python planner.
 """
@@ -16,21 +16,19 @@ return None, and the caller takes the Python planner.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
-import tempfile
 import threading
 from pathlib import Path
 from typing import Sequence
 
 import numpy as np
 
+from .ops.kernels import library
+
 __all__ = ["available", "plan", "chunk_batch", "NativePlan"]
 
 _SOURCE = Path(__file__).resolve().parents[1] / "native" / "rc_native.cpp"
-_BUILD_DIR = Path(__file__).resolve().parent / "_build"
 _FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
 
 _lib = None
@@ -40,30 +38,7 @@ _lock = threading.Lock()
 
 def library_path() -> Path:
     """Where the library of the current source lives (built or not)."""
-    digest = hashlib.sha256(_SOURCE.read_bytes() + " ".join(_FLAGS).encode()
-                            ).hexdigest()[:12]
-    return _BUILD_DIR / f"librc_native_{digest}.so"
-
-
-def _build() -> Path:
-    """Compile the source unless its library is there. The compiler writes
-    a temporary file that is then renamed, so two processes building at
-    once never load a partial library."""
-    lib = library_path()
-    if lib.exists():
-        return lib
-    cxx = os.environ.get("CXX") or shutil.which("g++") or "g++"
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    try:
-        subprocess.run([cxx, *_FLAGS, "-o", tmp, str(_SOURCE)], check=True,
-                       capture_output=True, timeout=120)
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib
+    return library.library_path(_SOURCE, _FLAGS)
 
 
 def _load():
@@ -72,8 +47,10 @@ def _load():
     with _lock:
         if _lib is not None or _load_failed:
             return _lib
+        cxx = os.environ.get("CXX") or shutil.which("g++") or "g++"
         try:
-            lib = ctypes.CDLL(str(_build()))
+            built = library.compile_sources([_SOURCE], cxx, _FLAGS)
+            lib = ctypes.CDLL(str(built[_SOURCE][0]))
             i64 = ctypes.c_int64
             p64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
             lib.rc_bucket_dim.restype = i64
@@ -88,7 +65,7 @@ def _load():
             lib.rc_chunk_batch.restype = i64
             lib.rc_chunk_batch.argtypes = [i64] * 6
             _lib = lib
-        except (OSError, subprocess.SubprocessError):
+        except (OSError, library.BuildError):
             _load_failed = True
         return _lib
 

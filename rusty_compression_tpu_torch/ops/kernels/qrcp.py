@@ -14,11 +14,8 @@ afresh in every step's pass). All four instantiate the one step loop of
 columns split over its CTAs, each CTA's residual slice in its shared
 memory where it fits; a panel whose Q does not fit a cluster runs as one
 cooperative grid (``panel_layout`` decides, from the shape alone), so
-every kernel takes every panel. Each source is compiled for ``sm_90a``
-with ``nvcc`` into ``_build/`` at the first use of any kernel on a CUDA
-tensor (one ``nvcc`` per source, started together) and bound through
-``ctypes`` (a plain C interface, so a build takes seconds and needs
-neither ninja nor PyTorch's headers).
+every kernel takes every panel. ``library.py`` builds each source at the
+first use of its kernel on a CUDA tensor, loads it and launches it.
 
 Each wrapper runs the plain version for a tensor on the CPU and launches
 its kernel for a CUDA tensor, or raises; none falls back. Each counts its
@@ -28,57 +25,44 @@ launched at in its ``launched_shapes``.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-from pathlib import Path
 
 import torch
 
 from ...utils.dtypes import real_dtype
+from . import library
 
 __all__ = ["qrcp_panel", "qrcp_panel_complex", "qrcp_panel_f64",
            "qrcp_panel_c128", "qrcp_panel_plain", "qrcp_core_plain",
-           "kernel_fits", "panel_layout", "PanelLayout", "KERNELS", "build"]
-
-_PKG = Path(__file__).resolve().parents[2]
-_CSRC = _PKG / "csrc"
-_HEADER = _CSRC / "qrcp_common.cuh"
-_BUILD_DIR = _PKG / "_build"
+           "kernel_fits", "panel_layout", "PanelLayout", "KERNELS"]
 
 
 @dataclasses.dataclass(frozen=True)
 class KernelSpec:
-    """One kernel: its C entry point, its source under ``csrc/``, the dtype
-    its wrapper takes (``label`` names it in errors), whether it is one of
-    K3 and K4 (``wide``: f64 norms, the two norm rules) and the entry-wise
-    tolerance of its q and r against the plain version
+    """One kernel: its C entry point (a row of ``library.ENTRY_POINTS``),
+    the dtype its wrapper takes (``label`` names it in errors), whether it
+    is one of K3 and K4 (``wide``: f64 norms, the two norm rules) and the
+    entry-wise tolerance of its q and r against the plain version
     (the same arithmetic summed in another order)."""
     entry: str
-    source: str
     dtype: torch.dtype
     label: str
     wide: bool
     tol: float
 
 
-#: The kernels by wrapper name: the one table that the routes, the layout
-#: sweep (``sweep.py``) and ``chip_smoke.py`` read.
+#: The kernels by wrapper name: what the routes, the layout sweep
+#: (``sweep.py``) and ``chip_smoke.py`` read of K1-K4.
 KERNELS = {
-    "qrcp_panel": KernelSpec("rc_qrcp_panel_f32", "qrcp.cu", torch.float32,
-                             "f32", False, 1e-4),
-    "qrcp_panel_complex": KernelSpec("rc_qrcp_panel_c64", "qrcp_c64.cu",
-                                     torch.complex64, "c64", False, 1e-4),
-    "qrcp_panel_f64": KernelSpec("rc_qrcp_panel_f64", "qrcp_f64.cu",
-                                 torch.float64, "f64", True, 1e-9),
-    "qrcp_panel_c128": KernelSpec("rc_qrcp_panel_c128", "qrcp_c128.cu",
-                                  torch.complex128, "c128", True, 1e-9),
+    "qrcp_panel": KernelSpec("rc_qrcp_panel_f32", torch.float32, "f32",
+                             False, 1e-4),
+    "qrcp_panel_complex": KernelSpec("rc_qrcp_panel_c64", torch.complex64,
+                                     "c64", False, 1e-4),
+    "qrcp_panel_f64": KernelSpec("rc_qrcp_panel_f64", torch.float64, "f64",
+                                 True, 1e-9),
+    "qrcp_panel_c128": KernelSpec("rc_qrcp_panel_c128", torch.complex128,
+                                  "c128", True, 1e-9),
 }
 #: The dtypes of K3 and K4.
 WIDE_DTYPES = tuple(spec.dtype for spec in KERNELS.values() if spec.wide)
@@ -384,94 +368,6 @@ def qrcp_core_plain(b: torch.Tensor):
                             norms="recompute")
 
 
-#: Whether each C entry point is one of K3 and K4's.
-_WIDE_ENTRIES = {spec.entry: spec.wide for spec in KERNELS.values()}
-_libs: dict = {}
-_lib_lock = threading.Lock()
-#: Preprocessor names the sources are built with; ``sweep.py --clocks``
-#: sets ``RC_QRCP_CLOCKS`` here before the first build.
-_build_defines: tuple[str, ...] = ()
-
-
-def _nvcc() -> str:
-    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc"), shutil.which("nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME)")
-
-
-def compile_sources(entries: dict[str, Path],
-                    depends: bytes = b"") -> dict[str, tuple[Path, str]]:
-    """Compile the sources of ``entries`` (C entry point -> its source) for
-    sm_90a into ``_build/``, one ``nvcc`` per distinct source and all
-    started together, skipping a source whose library is already there
-    (named by a hash of the source, ``depends``, the headers it includes,
-    and the build's defines). Returns, by C entry point, the library's
-    path and the compiler's report (registers, shared memory, spills;
-    empty for a library that was found)."""
-    built, running = {}, []
-    for source in dict.fromkeys(entries.values()):
-        digest = hashlib.sha256(source.read_bytes() + depends + " ".join(
-            _build_defines).encode()).hexdigest()[:12]
-        lib = _BUILD_DIR / f"lib{source.stem}_{digest}.so"
-        if lib.exists():
-            built[source] = (lib, "")
-            continue
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler",
-               "-fPIC", *(f"-D{name}" for name in _build_defines),
-               "-o", tmp, str(source)]
-        running.append((source, lib, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    failures = []
-    for source, lib, tmp, proc in running:
-        _, report = proc.communicate()
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failures.append(f"{lib.name}:\n{report}")
-            continue
-        os.replace(tmp, lib)  # atomic: a concurrent build never sees a partial file
-        built[source] = (lib, report)
-    if failures:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
-    return {entry: built[source] for entry, source in entries.items()}
-
-
-def build() -> dict[str, tuple[Path, str]]:
-    """Compile K1-K4 (``compile_sources``: each source with the header it
-    includes). Returns, by C entry point, the library's path and the
-    compiler's report."""
-    return compile_sources({spec.entry: _CSRC / spec.source
-                            for spec in KERNELS.values()},
-                           _HEADER.read_bytes())
-
-
-def _entry(name: str):
-    """The C entry point ``name``, from its library (built on first use)."""
-    with _lib_lock:
-        if name not in _libs:
-            lib = ctypes.CDLL(str(build()[name][0]))
-            fn = getattr(lib, name)
-            # K3 and K4 take a norm rule besides the layout
-            ints = 10 if _WIDE_ENTRIES[name] else 9
-            fn.argtypes = [ctypes.c_void_p] * 11 + [
-                ctypes.c_int] * ints + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _libs[name] = (lib, fn)
-        return _libs[name][1]
-
-
-#: What the C entry points return beside CUDA's own error codes.
-_LAUNCH_ERRORS = {
-    -1: "the card cannot schedule a cluster of this layout",
-    -2: "the layout's numbers do not fit together",
-}
-
-
 def _panel(wrapper, a: torch.Tensor, k: int, used: torch.Tensor | None,
            layout: PanelLayout | None = None, norms: str | None = None):
     """What the four wrappers share: the checks, the plain version on the
@@ -513,7 +409,6 @@ def _panel(wrapper, a: torch.Tensor, k: int, used: torch.Tensor | None,
         if used.device != a.device:
             raise ValueError("used must be on the panel's device")
         used = used.to(torch.float32).expand(*batch, n).contiguous()
-    fn = _entry(spec.entry)
     q = torch.empty((*batch, m, k), dtype=a.dtype, device=a.device)
     r = torch.empty((*batch, k, n), dtype=a.dtype, device=a.device)
     piv = torch.empty((*batch, k), dtype=torch.int32, device=a.device)
@@ -541,26 +436,17 @@ def _panel(wrapper, a: torch.Tensor, k: int, used: torch.Tensor | None,
                        (layout.cluster, (3 * m + k + 1) // 2 * 2),
                        dtype=a.dtype, device=a.device)]
 
-    def ptr(x, p):
-        return None if x is None else (x[p] if batch else x).data_ptr()
-
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        for first, count in launches:
-            args = [ptr(x, first) for x in (a, used, q, r, piv, resid,
-                                            norm_ws)]
-            args += [x.data_ptr() if x is not None else None
-                     for x in grid_ws]
-            tail = [int(layout.resid_in_smem), layout.code]
-            if wide:
-                tail.append(NORM_RULES[norms])
-            err = fn(*args, count, m, n, k, layout.cluster, layout.threads,
-                     *tail, layout.smem_bytes, stream)
-            if err != 0:
-                raise RuntimeError(
-                    f"{name}: kernel launch failed for {layout}: "
-                    f"{_LAUNCH_ERRORS.get(err, f'CUDA error {err}')}")
-            wrapper.launch_count += 1
+    tail = [int(layout.resid_in_smem), layout.code]
+    if wide:
+        tail.append(NORM_RULES[norms])
+    for first, count in launches:
+        panels = [x if x is None or not batch else x[first]
+                  for x in (a, used, q, r, piv, resid, norm_ws)]
+        library.launch(spec.entry, a.device,
+                       [*panels, *grid_ws, count, m, n, k, layout.cluster,
+                        layout.threads, *tail, layout.smem_bytes],
+                       name, layout)
+        wrapper.launch_count += 1
     key = ((nb, m, n), k, used is not None)
     wrapper.launched_shapes.add((*key, norms) if wide else key)
     return q, r, piv

@@ -122,9 +122,8 @@ def ptxas_lines(report: str) -> list[str]:
     return lines
 
 
-def read_clocks(k1, entry: str, reset: bool) -> list[int]:
-    lib = k1._libs[entry][0]
-    fn = getattr(lib, entry.replace("panel", "clocks"))
+def read_clocks(library, entry: str, reset: bool) -> list[int]:
+    fn = getattr(library.handle(entry), entry.replace("panel", "clocks"))
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
     out = (ctypes.c_longlong * 8)()
     err = fn(out, int(reset))
@@ -136,6 +135,7 @@ def read_clocks(k1, entry: str, reset: bool) -> list[int]:
 def main(argv) -> int:
     import torch
 
+    from . import library
     from . import qrcp as k1
 
     if not torch.cuda.is_available():
@@ -146,13 +146,14 @@ def main(argv) -> int:
     grids = [int(x) for x in argv[argv.index("--grids") + 1].split(",")] \
         if "--grids" in argv else [k1.MAX_GRID]
     if clocks:
-        k1._build_defines = ("RC_QRCP_CLOCKS",)
+        library.count_clocks()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    reports = {entry: ptxas_lines(report)
-               for entry, (_, report) in k1.build().items()}
+    built = library.build()
+    reports = {spec.entry: ptxas_lines(built[spec.entry][1])
+               for spec in k1.KERNELS.values()}
     print(json.dumps({"card": card, "torch": torch.__version__,
                       "ptxas": reports}), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -209,10 +210,10 @@ def main(argv) -> int:
                 ok = row["pivots_equal"] and row["max_abs_err"] <= spec.tol
                 failed += not ok
                 if clocks:
-                    read_clocks(k1, spec.entry, reset=True)
+                    read_clocks(library, spec.entry, reset=True)
                     run()
                     torch.cuda.synchronize()
-                    cycles = read_clocks(k1, spec.entry, reset=False)
+                    cycles = read_clocks(library, spec.entry, reset=False)
                     parts = SPLIT_CLOCK_PARTS if layout.code == 1 else \
                         CLOCK_PARTS
                     row["cycles_per_step"] = {

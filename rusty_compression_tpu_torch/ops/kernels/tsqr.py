@@ -14,31 +14,26 @@ threads a column, the chunk, the fan-in) from the shape alone;
 PyTorch operations (the sums in another order): the plain version that the
 CPU tests and ``chip_smoke.py`` hold the kernel against.
 
-The source is compiled for ``sm_90a`` into ``_build/`` at the first use on
-a CUDA tensor, with K1-K4's ``compile_sources``, and bound through
-``ctypes``. ``tsqr`` runs the plain version for a CPU tensor and launches
-the kernel for a CUDA tensor, or raises; it counts its calls in
+``library.py`` builds the source at the first use on a CUDA tensor, loads
+it and launches it. ``tsqr`` runs the plain version for a CPU tensor and
+launches the kernel for a CUDA tensor, or raises; it counts its calls in
 ``tsqr.launch_count`` (one a call, stack or not: the two kernels of a
 call are launched together).
 """
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
-import threading
-from pathlib import Path
 
 import torch
 
-from . import qrcp
+from . import library
 
 __all__ = ["tsqr", "tsqr_plain", "tsqr_plan", "TsqrPlan", "kernel_takes",
-           "MAX_WIDTH", "DTYPES", "build"]
+           "MAX_WIDTH", "DTYPES"]
 
-_SOURCE = Path(qrcp._CSRC) / "tsqr.cu"
-#: The C entry point of each dtype.
+#: The C entry point of each dtype (rows of ``library.ENTRY_POINTS``).
 ENTRIES = {torch.float32: "rc_tsqr_f32", torch.float64: "rc_tsqr_f64"}
 DTYPES = tuple(ENTRIES)
 #: The widest panel K5 takes: two threads a column, 256 a CTA (the block
@@ -380,29 +375,6 @@ def tsqr_plain(y: torch.Tensor, plan: TsqrPlan | None = None):
 # The kernel
 # ---------------------------------------------------------------------------
 
-_libs: dict = {}
-_lib_lock = threading.Lock()
-
-
-def build() -> dict[str, tuple[Path, str]]:
-    """Compile ``csrc/tsqr.cu`` (``qrcp.compile_sources``). Returns, by C
-    entry point, the library's path and the compiler's report."""
-    return qrcp.compile_sources({entry: _SOURCE for entry in
-                                 ENTRIES.values()})
-
-
-def _entry(name: str):
-    """The C entry point ``name``, from its library (built on first use)."""
-    with _lib_lock:
-        if name not in _libs:
-            lib = ctypes.CDLL(str(build()[name][0]))
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [
-                ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _libs[name] = (lib, fn)
-        return _libs[name][1]
-
 
 def tsqr(y: torch.Tensor, *, want_r: bool = False):
     """``(q, r)``: the thin QR of a real f32 / f64 panel (m, n) or stack
@@ -431,7 +403,6 @@ def tsqr(y: torch.Tensor, *, want_r: bool = False):
         return torch.empty_like(y), (y.new_empty((*lead, n, n)) if want_r
                                      else None)
     y = y.contiguous()
-    fn = _entry(ENTRIES[y.dtype])
     q = torch.empty_like(y)
     nn = n * n
     rws = y.new_empty(batch * plan.slots * nn)
@@ -441,18 +412,11 @@ def tsqr(y: torch.Tensor, *, want_r: bool = False):
     counters = torch.zeros(batch * plan.slots, dtype=torch.int32,
                            device=y.device)
     r = y.new_empty((*lead, n, n)) if want_r else None
-    with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream(y.device).cuda_stream
-        err = fn(y.data_ptr(), q.data_ptr(),
-                 None if r is None else r.data_ptr(), rws.data_ptr(),
-                 taus.data_ptr(), wws.data_ptr(), counters.data_ptr(),
-                 batch, m, n, plan.leaves, plan.height, plan.fanin,
-                 plan.tau_rows, plan.groups, plan.rows, plan.threads,
-                 plan.smem_bytes, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"tsqr: kernel launch failed for {plan}: "
-            f"{'the plan numbers do not fit' if err == -2 else f'CUDA error {err}'}")
+    library.launch(ENTRIES[y.dtype], y.device,
+                   [y, q, r, rws, taus, wws, counters, batch, m, n,
+                    plan.leaves, plan.height, plan.fanin, plan.tau_rows,
+                    plan.groups, plan.rows, plan.threads, plan.smem_bytes],
+                   "tsqr", plan)
     tsqr.launch_count += 1
     return q, r
 
